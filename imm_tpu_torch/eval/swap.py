@@ -1,0 +1,33 @@
+"""Pose-swap (landmark-conditioned generation) inference: content features from
+image A and pose landmarks from image B give an image with A's appearance in
+B's pose. Mirrors ``imm_tpu.eval.swap``; the model carries its own weights,
+where the JAX functions took ``params`` and ``batch_stats``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from imm_tpu_torch.models.imm import IMM
+
+
+def swap_fn(model: IMM):
+    """-> fn(appearance, pose): the swap forward on the frozen model.
+
+    Puts ``model`` in eval mode (running BatchNorm statistics) and runs
+    under ``torch.inference_mode()``. Images are NHWC (B, S, S, 3) in [0, 1]
+    on the model's device; the result is (B, S, S, 3) float32."""
+    model.eval()
+
+    def fn(appearance: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            content = model.encode_content(appearance)
+            coords, _ = model.encode_pose(pose)
+            return model.generate(content, coords)
+
+    return fn
+
+
+def pose_swap(model: IMM, appearance_images, pose_images) -> torch.Tensor:
+    """(B,H,W,3) x2 -> (B,H,W,3) generated swaps."""
+    return swap_fn(model)(appearance_images, pose_images)
