@@ -3,19 +3,30 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's CUDA kernels from
-``imm_tpu_torch/csrc/``, holds each kernel against its plain PyTorch version
-on the card, drives the serving path of the ``swap`` preset at full width
-(landmark detector and pose swap, K=10, 128 px, bf16, B=128) through its
-entry points, checks the launch counts and the outputs, times the path and
-the kernels, and prints one JSON line per phase. The last two lines are the
-``kernels`` summary and ``{"ok": true, "device": {...}}``. Any failure
-raises and exits non-zero; without CUDA it exits non-zero before any result.
-It imports nothing of JAX.
+Run from the root of a checkout. It builds the port's four CUDA kernels from
+``imm_tpu_torch/csrc/``, holds each against its plain PyTorch version on the
+card, and drives the port's two main paths at full width (K=10, 128 px, bf16,
+B=128) through their entry points:
+
+- serving, preset ``swap``: landmark detector and pose swap, and
+  ``cli.generate``;
+- training, preset ``synthetic_best``: a few calls of the step function
+  (``build_experiment(config).run()``), one eval, one step on the kernel path
+  against the plain path, and ``cli.train``;
+- the warp's gradient (``warp_image`` differentiated in the images and the
+  warp parameters), the path of the warp's backward kernel, which training
+  does not take.
+
+It checks the launch counts and the outputs, times the paths and the kernels,
+and prints one JSON line per phase. The last two lines are the ``kernels``
+summary and ``{"ok": true, "device": {...}}``. Any failure raises and exits
+non-zero; without CUDA it exits non-zero before any result. It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -32,6 +43,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
 BATCH = 128
 TOL_KERNEL = 1e-5
+# bf16 images: the kernel lerps in f32 and rounds once, the plain version
+# rounds each of its three lerps to bf16 (2^-8 at 1.0): four units.
+TOL_WARP_BF16 = 2.0**-6
+# gradients are sums of many products taken in another order (with atomics in
+# an order that changes from run to run): relative to the largest entry.
+TOL_GRAD_REL = 2e-5
+SMOKE_STEPS_PER_CALL = 5  # the preset's 40, cut for the smoke
+SMOKE_CALLS = 3
+PHASE_SECONDS: dict[str, float] = {}
 
 
 def emit(phase: str, **fields) -> None:
@@ -41,6 +61,20 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+class timed:
+    """Records the wall seconds of a phase under ``name``."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        torch.cuda.synchronize()
+        PHASE_SECONDS[self.name] = round(time.perf_counter() - self.t0, 3)
 
 
 def cuda_times(fn, reps: int = 100, warmup: int = 5, inner: int = 1) -> list[float]:
@@ -86,30 +120,84 @@ def profiled_kernels(fn, calls: int):
     return sorted(rows, key=lambda r: r[2], reverse=True), wall_ms
 
 
-def profiled_device_ms(fn, calls: int = 50) -> float:
-    """Device time (ms) of the GPU kernels one call of ``fn`` runs, averaged
-    over ``calls`` calls after a warm-up: the kernels' own time, without the
-    host's time to issue them."""
+def short_name(kernel: str) -> str:
+    """A kernel's name without the namespaces every PyTorch kernel shares."""
+    for noise in ("void ", "at::native::", "(anonymous namespace)::", "at::cuda::detail::"):
+        kernel = kernel.replace(noise, "")
+    return kernel[:100]
+
+
+KINDS = (  # first match wins
+    ("port_kernels", ("bottleneck_fwd_kernel", "bottleneck_bwd_kernel", "warp_fwd_kernel", "warp_bwd_kernel")),
+    ("convolution", ("xmma", "convolve", "cudnn", "gemm", "wgrad", "dgrad", "fprop", "cutlass", "nhwcAddPadding", "nchwToNhwc", "nhwcToNchw")),
+    ("batch_norm", ("batch_norm",)),
+    ("reduction", ("reduce_kernel",)),
+    ("pool_upsample", ("pool", "upsample")),
+    ("gather_scatter", ("gather", "scatter", "index")),
+    ("elementwise", ("elementwise", "FillFunctor", "copy")),
+)
+
+
+def by_kind(rows) -> dict[str, float]:
+    """Device ms of profiler ``rows`` summed by kind of kernel."""
+    out: dict[str, float] = {}
+    for name, _, us in rows:
+        kind = next((k for k, words in KINDS if any(w in name for w in words)), "other")
+        out[kind] = out.get(kind, 0.0) + us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def profiled_device_ms(fn, calls: int = 50, only: str | None = None) -> float:
+    """Device time (ms) of the GPU kernels one call of ``fn`` runs (of those
+    whose name contains ``only``, if given), averaged over ``calls`` calls
+    after a warm-up: the kernels' own time, without the host's time to issue
+    them."""
     fn()
     torch.cuda.synchronize()
     rows, _ = profiled_kernels(fn, calls)
-    check(bool(rows), "the profiler saw no GPU kernel")
+    if only is not None:
+        rows = [r for r in rows if only in r[0]]
+    check(bool(rows), f"the profiler saw no GPU kernel{f' named {only}' if only else ''}")
     return sum(us for _, _, us in rows) / calls / 1e3
 
 
-def bottleneck_bound(b, h, w, k, oh, ow):
-    """Least time (ms) and its limit for one bottleneck call: each input byte
-    read once and each output byte written once at the memory rate, against
-    the float32 operations (two marginal sums, the softmax-expectation, 7 per
-    rendered value) at the f32 peak."""
-    nbytes = 4 * b * (h * w * k + oh * ow * k + 2 * k)
-    ops = b * (2 * h * w * k + 6 * (h + w) * k + 7 * oh * ow * k)
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """Least time (ms) for work that must move ``nbytes`` through device
+    memory and do ``ops`` float32 operations, and which of the two sets it."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def main() -> int:
-    # 1. Device
+def bottleneck_bound(b, h, w, k, oh, ow):
+    """Forward: heatmaps read, coords and maps written; two marginal sums,
+    the softmax-expectation, 7 operations per rendered value."""
+    return bound(4 * b * (h * w * k + oh * ow * k + 2 * k),
+                 b * (2 * h * w * k + 6 * (h + w) * k + 7 * oh * ow * k))
+
+
+def bottleneck_bwd_bound(b, h, w, k, oh, ow):
+    """Backward: heatmaps, dmaps and dcoords read, dH written; the forward's
+    recomputation, 6 more per rendered value, 4 per written value."""
+    return bound(4 * b * (2 * h * w * k + oh * ow * k + 2 * k),
+                 b * (2 * h * w * k + 8 * (h + w) * k + 13 * oh * ow * k + 4 * h * w * k))
+
+
+def warp_bound(b, h, w, c, ho, wo, itemsize):
+    """Forward: images and grid read, output written; the coordinate math
+    (14) and three lerps (9) per channel, per output pixel."""
+    return bound(b * (h * w * c * itemsize + ho * wo * (8 + c * itemsize)),
+                 b * ho * wo * (14 + 9 * c))
+
+
+def warp_bwd_bound(b, h, w, c, ho, wo, itemsize):
+    """Backward: images, grid and cotangent read, d_images (f32), d_fy and
+    d_fx written; per channel four lerps, two products and four weighted
+    adds (30), per output pixel."""
+    return bound(b * (h * w * c * (itemsize + 4) + ho * wo * (8 + c * itemsize + 8)),
+                 b * ho * wo * (14 + 30 * c))
+
+
+def device_phase():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
     smi = subprocess.run(
@@ -118,56 +206,132 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     sys.path.insert(0, str(ROOT))
-    from imm_tpu_torch.configs import get_preset
-    from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
-    from imm_tpu_torch.eval.export import landmark_fn
-    from imm_tpu_torch.eval.swap import swap_fn
-    from imm_tpu_torch.models.imm import IMM, init_model
-    from imm_tpu_torch.ops import _build
-    from imm_tpu_torch.ops.fused import _bottleneck_reference, landmark_bottleneck
-
-    dev = torch.device("cuda")
-    kind = torch.cuda.get_device_name(0)
-    # the kernel comparisons are float32 without convs; the model runs bf16.
+    # the kernel comparisons are float32 without convs; the models run bf16.
     # TF32 is off for every float32 conv and matmul this script runs.
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
     emit("device", kind=kind, count=torch.cuda.device_count(), nvidia_smi=smi,
          torch=torch.__version__, cuda=torch.version.cuda,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
+    return smi, kind
 
-    # 2. Build
+
+def build_phase():
+    from imm_tpu_torch.ops import _build
+
     t0 = time.perf_counter()
-    libs = _build.build()
+    libs = _build.build()  # one nvcc per source, all started together
     build_s = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                if "registers" in ln or "spill" in ln]
         for name, path in libs.items() if path.with_suffix(".log").exists()
     }
+    check(set(libs) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd"},
+          f"kernels built: {sorted(libs)}")
     emit("build", seconds=build_s, libraries=[p.name for p in libs.values()], ptxas=ptxas)
 
-    # 3. Kernel against its plain version, on the card. Tolerance 1e-5 (f32):
-    # the two differ only in expf against torch.exp and in summation order.
+
+def synthetic_best_pair_grid(gen, batch, size):
+    """A TPS sampling grid as ``synthetic_best``'s pair synthesis builds it:
+    a shared and an individual level at the preset's noise."""
+    from imm_tpu_torch.configs import get_preset
+    from imm_tpu_torch.ops import tps
+
+    c = get_preset("synthetic_best").pair
+    levels = [tps.sample_tps_params(gen, batch, c.rotsd[i], c.scalesd[i], c.transsd[i],
+                                    c.warpsd[i], c.n_grid) for i in (0, 1)]
+    params = tps.combine_params(*levels)
+    return params, tps.tps_sampler_grid(params, (size, size), c.n_grid)
+
+
+def kernel_checks(dev) -> dict[str, float]:
+    """Each kernel against its plain version on the card; -> the largest
+    absolute error seen per kernel."""
+    from imm_tpu_torch.ops.fused import _bottleneck_reference, landmark_bottleneck
+    from imm_tpu_torch.ops.image import bilinear_sample, normalized_grid
+    from imm_tpu_torch.ops.warp import warp_bilinear
+
     gen = torch.Generator(dev).manual_seed(0)
+    errs = dict.fromkeys(("bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd"), 0.0)
+
+    def record(kernel, err, tol, **fields):
+        emit("kernel_check", kernel=kernel, max_abs_err=err, atol=tol, **fields)
+        check(err <= tol, f"{kernel} differs from its plain version by {err} (atol {tol}): {fields}")
+        errs[kernel] = max(errs[kernel], err)
+
+    # Bottleneck, forward and backward. Tolerance 1e-5 (f32): kernel and plain
+    # version differ only in expf against torch.exp and in summation order.
     cases = [  # (B, H, W, K), out_hw, temperature
-        ((BATCH, 16, 16, 10), (16, 16), 1.0),  # the swap preset's shape
+        ((BATCH, 16, 16, 10), (16, 16), 1.0),  # the presets' shape
         ((5, 16, 16, 30), (16, 16), 1.0),  # odd batch, the largest K of the presets
         ((4, 16, 16, 10), (32, 32), 0.5),  # out_hw != input hw, another temperature
     ]
-    max_err = 0.0
     for shape, out_hw, temp in cases:
-        hm = torch.randn(shape, generator=gen, device=dev) * 3.0
+        fields = dict(shape=list(shape), out_hw=list(out_hw), temperature=temp)
+        hm = (torch.randn(shape, generator=gen, device=dev) * 3.0).requires_grad_()
         c_k, m_k = landmark_bottleneck(hm, out_hw, 10.0, temp, impl="pallas")
         c_r, m_r = _bottleneck_reference(hm, out_hw, 10.0, temp, "rot")
         torch.cuda.synchronize()
         err = max((c_k - c_r).abs().max().item(), (m_k - m_r).abs().max().item())
-        emit("kernel_check", kernel="bottleneck_fwd", shape=list(shape), out_hw=list(out_hw),
-             temperature=temp, max_abs_err=err, atol=TOL_KERNEL)
-        check(err <= TOL_KERNEL, f"bottleneck_fwd differs from its plain version by {err}")
-        max_err = max(max_err, err)
+        record("bottleneck_fwd", err, TOL_KERNEL, **fields)
+        dc = torch.randn(c_r.shape, generator=gen, device=dev)
+        dm = torch.randn(m_r.shape, generator=gen, device=dev)
+        # both cotangents; then the coords' alone (dmaps=None, as the
+        # equivariance pass leaves it), handed over expanded and strided
+        (g_k,) = torch.autograd.grad([c_k, m_k], hm, [dc, dm], retain_graph=True)
+        (g_r,) = torch.autograd.grad([c_r, m_r], hm, [dc, dm], retain_graph=True)
+        record("bottleneck_bwd", (g_k - g_r).abs().max().item(), TOL_KERNEL, dmaps=True, **fields)
+        dc1 = dc[:1].expand_as(dc)
+        (g_k,) = torch.autograd.grad(c_k, hm, dc1)
+        (g_r,) = torch.autograd.grad(c_r, hm, dc1)
+        torch.cuda.synchronize()
+        record("bottleneck_bwd", (g_k - g_r).abs().max().item(), TOL_KERNEL, dmaps=False, **fields)
 
-    # 4. The slice: the swap preset's serving forwards at full width.
+    # Warp, forward and backward, on one set of cases.
+    images = torch.rand((BATCH, 128, 128, 3), generator=gen, device=dev)
+    _, tps_grid = synthetic_best_pair_grid(gen, BATCH, 128)
+    identity = normalized_grid(128, 128, device=dev)[None].repeat(4, 1, 1, 1)
+    warp_cases = [
+        ("tps_grid_synthetic_best", images, tps_grid, TOL_KERNEL),
+        ("coordinates_in_pm3", images[:4], torch.rand((4, 128, 128, 2), generator=gen, device=dev) * 6 - 3, TOL_KERNEL),
+        ("nonsquare_output", images[:4], normalized_grid(48, 80, device=dev)[None].repeat(4, 1, 1, 1) + 0.05, TOL_KERNEL),
+        ("identity_grid_border_ties", images[:4], identity, TOL_KERNEL),
+        ("bf16_images", images[:8].bfloat16(), tps_grid[:8], TOL_WARP_BF16),
+    ]
+    for name, img, grid, tol in warp_cases:
+        img, grid = img.clone().requires_grad_(), grid.clone().requires_grad_()
+        out_k, out_r = warp_bilinear(img, grid), bilinear_sample(img, grid)
+        torch.cuda.synchronize()
+        fields = dict(case=name, images=list(img.shape), grid=list(grid.shape), dtype=str(img.dtype))
+        record("warp_fwd", (out_k.float() - out_r.float()).abs().max().item(), tol, **fields)
+        if img.dtype != torch.float32:
+            continue  # the plain backward in bf16 arithmetic is no reference for an f32 kernel
+        cot = torch.randn(out_r.shape, generator=gen, device=dev)
+        if name == "identity_grid_border_ties":
+            cot = 2.0 * out_r.detach()  # the gradient of sum(y^2): the tie rule's test
+        g_k = torch.autograd.grad(out_k, (img, grid), cot)
+        g_r = torch.autograd.grad(out_r, (img, grid), cot)
+        torch.cuda.synchronize()
+        for which, a, b in zip(("d_images", "d_grid"), g_k, g_r):
+            tol_g = TOL_GRAD_REL * max(1.0, b.abs().max().item())
+            record("warp_bwd", (a - b).abs().max().item(), tol_g, gradient=which, **fields)
+    return errs
+
+
+def serving_slice(dev):
+    """The swap preset's serving forwards at full width; -> what the timing
+    phases reuse and K1's launches on this path."""
+    import numpy as np
+
+    from imm_tpu_torch.configs import get_preset
+    from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
+    from imm_tpu_torch.eval.export import landmark_fn
+    from imm_tpu_torch.eval.swap import swap_fn
+    from imm_tpu_torch.models.imm import IMM, init_model
+    from imm_tpu_torch.ops.fused import landmark_bottleneck
+
     config = get_preset("swap").model
     model = init_model(config, seed=0, device=dev)
     faces = SyntheticBlobFaces(image_size=config.image_size)
@@ -194,7 +358,7 @@ def main() -> int:
     check(bool(torch.isfinite(coords).all() and torch.isfinite(swaps).all()), "non-finite output")
     check(coords.abs().max().item() <= 1.0, "coords outside [-1, 1]")
     # one launch per encode_pose: landmark_fn once, swap_fn once
-    check(launches == 2, f"bottleneck_fwd launched {launches} times on the main path, expected 2")
+    check(launches == 2, f"bottleneck_fwd launched {launches} times on the serving path, expected 2")
 
     plain = IMM(dataclasses.replace(config, bottleneck_impl="xla")).to(dev)
     plain.load_state_dict(model.state_dict())
@@ -225,39 +389,296 @@ def main() -> int:
          "--n", "8", "--out", str(out)],
         cwd=ROOT, check=True, timeout=600,
     )
-    import numpy as np
-
     cli_out = np.load(out)
     check(cli_out.shape == (8, s, s, 3) and bool(np.isfinite(cli_out).all()),
           f"cli output {cli_out.shape}")
     emit("cli_generate", shape=list(cli_out.shape))
+    return dict(landmarks=landmarks, swap=swap, app=app, pose=pose, launches=launches)
 
-    # 5. Timing: CUDA events, 100 repetitions after 5 warm-up calls; the
-    # median and the 90th percentile (10 samples beyond it).
+
+def kernel_counts():
+    from imm_tpu_torch.ops.fused import landmark_bottleneck
+    from imm_tpu_torch.ops.warp import warp_bilinear
+
+    return {"bottleneck_fwd": landmark_bottleneck.launches,
+            "bottleneck_bwd": landmark_bottleneck.bwd_launches,
+            "warp_fwd": warp_bilinear.launches, "warp_bwd": warp_bilinear.bwd_launches}
+
+
+def reset_kernel_counts():
+    from imm_tpu_torch.ops.fused import landmark_bottleneck
+    from imm_tpu_torch.ops.warp import warp_bilinear
+
+    landmark_bottleneck.launches = landmark_bottleneck.bwd_launches = 0
+    warp_bilinear.launches = warp_bilinear.bwd_launches = 0
+
+
+def smoke_config(steps_per_call: int, plain: bool = False):
+    """``synthetic_best`` at full width, its 40 steps per call cut to
+    ``steps_per_call``; ``plain`` takes the plain versions of all kernels."""
+    from imm_tpu_torch.configs import get_preset
+
+    cfg = get_preset("synthetic_best")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, steps_per_call=steps_per_call))
+    if plain:
+        cfg = dataclasses.replace(
+            cfg, model=dataclasses.replace(cfg.model, bottleneck_impl="xla"),
+            pair=dataclasses.replace(cfg.pair, warp_impl="xla"))
+    return cfg
+
+
+def training_slice(dev):
+    """The ``synthetic_best`` training step at full width through
+    ``build_experiment(config).run()``; -> the experiment and the kernels'
+    launches on this path."""
+    from imm_tpu_torch.data.pairs import PairSynthesizer
+    from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
+    from imm_tpu_torch.experiment import build_experiment
+
+    cfg = smoke_config(SMOKE_STEPS_PER_CALL)
+    n_steps = SMOKE_STEPS_PER_CALL * SMOKE_CALLS
+    exp = build_experiment(cfg, total_steps=n_steps)  # on the card: no device asked for
+    check(exp.device.type == "cuda", f"the experiment was built on {exp.device}")
+    before = {k: v.detach().clone() for k, v in exp.model.state_dict().items()}
+    ema_before = exp.state.loss_ema.clone()
+
+    reset_kernel_counts()
+    state = exp.run()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(state.host_step == n_steps == int(state.step), f"steps taken: {state.host_step}")
+    metrics = exp.trainer.history[-1]
+    check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
+    check(metrics.get("nonfinite_step", 0.0) == 0.0, "a step was skipped as non-finite")
+    for name in ("loss/total", "loss/equi", "loss/ent", "loss/pixel", "loss/conv4_3", "grad_norm"):
+        check(name in metrics, f"metric {name} missing: {sorted(metrics)}")
+    after = exp.model.state_dict()
+    still = [k for k, v in after.items() if torch.equal(v, before[k])]
+    # a softmax ignores a constant added to its input: that bias has no gradient
+    # but Adam's noise; every other parameter and batch statistic must move
+    check(set(still) <= {"pose_encoder.heatmap_head.bias"}, f"did not move: {still}")
+    check(not torch.equal(state.loss_ema, ema_before), "loss_ema did not move")
+    check(state.ema_params is None, "synthetic_best keeps no parameter EMA")
+    # per optimizer step: K1 on the target and on the source view (equi), K2
+    # for each, K3 for source and target; the warp's backward is not on this path
+    want = {"bottleneck_fwd": 2 * n_steps, "bottleneck_bwd": 2 * n_steps,
+            "warp_fwd": 2 * n_steps, "warp_bwd": 0}
+    check(launches == want, f"launches on the training path {launches}, expected {want}")
+
+    ev = exp.eval_fn(state)
+    check(all(math.isfinite(v) and v > 0 for v in ev.values()), f"eval: {ev}")
+    emit("train", preset="synthetic_best", batch=cfg.train.batch_size, dtype=cfg.model.compute_dtype,
+         steps_per_call=SMOKE_STEPS_PER_CALL, preset_steps_per_call=40, calls=SMOKE_CALLS,
+         steps=n_steps, launches=launches, launches_per_step={k: v / n_steps for k, v in launches.items()},
+         metrics=metrics, eval=ev, eval_samples=cfg.eval_samples)
+
+    # One step from one state with one generator seed: kernel path against
+    # plain path. First the pair alone (K3 against bilinear_sample in place).
+    faces = SyntheticBlobFaces(image_size=cfg.model.image_size)
+    frames = faces.sample(torch.Generator(dev).manual_seed(3), BATCH)["image"]
+    pair_k = PairSynthesizer(cfg.pair)(torch.Generator(dev).manual_seed(4), frames)
+    pair_p = PairSynthesizer(smoke_config(1, plain=True).pair)(torch.Generator(dev).manual_seed(4), frames)
+    pair_err = max((a - b).abs().max().item() for a, b in zip(pair_k, pair_p))
+    check(pair_err <= TOL_KERNEL, f"pair synthesis differs between the paths by {pair_err}")
+    exp_k = build_experiment(smoke_config(1), total_steps=1)
+    exp_p = build_experiment(smoke_config(1, plain=True), total_steps=1)
+    for e in (exp_k, exp_p):  # from the trained state above, not from the initial one
+        e.model.load_state_dict(exp.model.state_dict())
+        e.state.loss_ema = state.loss_ema.clone()
+        e.state.opt_state = copy.deepcopy(state.opt_state)
+        e.state.host_step, e.state.step = state.host_step, state.step.clone()
+    reset_kernel_counts()
+    _, m_k = exp_k.step_fn(exp_k.state, torch.Generator(dev).manual_seed(5))
+    kernel_launches = kernel_counts()
+    _, m_p = exp_p.step_fn(exp_p.state, torch.Generator(dev).manual_seed(5))
+    torch.cuda.synchronize()
+    check(kernel_counts() == kernel_launches, "the plain path launched a kernel")
+    m_k = {k: v.item() for k, v in m_k.items()}
+    m_p = {k: v.item() for k, v in m_p.items()}
+    # The two steps see inputs that differ in the last f32 bit (K3, K1) and
+    # run ~30 bf16 layers (8 bits, 2^-8 = 0.4% a rounding) whose backward
+    # sums in cuDNN in no fixed order. A loss term is a mean over ~10^6
+    # values, which averages most flipped roundings away: 2% relative. The
+    # gradient norm is led by a few layers' sums of bf16 products: 5%.
+    rel = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p}
+    emit("train_kernel_vs_plain", pair_max_abs_err=pair_err, pair_atol=TOL_KERNEL, kernel=m_k,
+         plain=m_p, relative_difference=rel, loss_rtol=0.02, grad_norm_rtol=0.05,
+         launches=kernel_launches)
+    for k, r in rel.items():
+        check(r <= (0.05 if k == "grad_norm" else 0.02), f"{k}: kernel {m_k[k]} vs plain {m_p[k]}")
+
+    subprocess.run(
+        [sys.executable, "-m", "imm_tpu_torch.cli.train", "--preset", "synthetic_best",
+         "--steps", str(SMOKE_STEPS_PER_CALL), f"train.steps_per_call={SMOKE_STEPS_PER_CALL}",
+         "eval_samples=256"],
+        cwd=ROOT, check=True, timeout=900,  # the weights path resolves against the root
+    )
+    emit("cli_train", steps=SMOKE_STEPS_PER_CALL)
+    return exp, launches
+
+
+def warp_grad_slice(dev):
+    """K4's path: the gradient of sum(warp_image(images, params)^2) in the
+    images, ``trans`` and ``cp_delta`` through the kernels against the plain
+    version; -> K4's launches on this path."""
+    from imm_tpu_torch.ops import tps
+
+    gen = torch.Generator(dev).manual_seed(6)
+    images = torch.rand((BATCH, 128, 128, 3), generator=gen, device=dev)
+    params, _ = synthetic_best_pair_grid(gen, BATCH, 128)
+
+    def grads(impl):
+        img = images.clone().requires_grad_()
+        p = tps.TPSParams(params.rot, params.log_scale, params.trans.clone().requires_grad_(),
+                          params.cp_delta.clone().requires_grad_())
+        out = tps.warp_image(img, p, impl=impl)
+        return torch.autograd.grad(out.square().sum(), (img, p.trans, p.cp_delta))
+
+    reset_kernel_counts()
+    g_k = grads("pallas")
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    g_p = grads("xla")
+    torch.cuda.synchronize()
+    check(launches["warp_fwd"] == 1 and launches["warp_bwd"] == 1, f"warp launches {launches}")
+    check(kernel_counts() == launches, "the plain path launched a kernel")
+    report = {}
+    for name, a, b in zip(("images", "trans", "cp_delta"), g_k, g_p):
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()), f"d_{name}: {tuple(a.shape)}")
+        # the parameter gradients sum 16,384 pixels' grid gradients through
+        # the grid-build matrix products: 1e-4 of the largest entry
+        tol = (TOL_GRAD_REL if name == "images" else 1e-4) * max(1.0, b.abs().max().item())
+        err = (a - b).abs().max().item()
+        report[name] = {"max_abs_err": err, "atol": tol, "largest": b.abs().max().item()}
+        check(err <= tol, f"d_{name} differs between the paths by {err} (atol {tol})")
+    emit("warp_grad", shape=list(images.shape), launches=launches, gradients=report)
+    return launches["warp_bwd"]
+
+
+def timing_phases(dev, smi, serving, exp):
+    """-> {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
+    import torch.nn.functional as F
+
+    from imm_tpu_torch.data.pairs import PairSynthesizer
+    from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
+    from imm_tpu_torch.experiment import build_experiment
+    from imm_tpu_torch.ops import fused, warp
+    from imm_tpu_torch.ops.fused import _bottleneck_reference, landmark_bottleneck
+    from imm_tpu_torch.ops.image import bilinear_sample
+
+    # Serving: CUDA events, 100 repetitions after 5 warm-up calls; the median
+    # and the 90th percentile (10 samples beyond it).
+    landmarks, swap, app, pose = (serving[k] for k in ("landmarks", "swap", "app", "pose"))
     pose1, app1 = pose[:1].clone(), app[:1].clone()
     t = {}
-    for name, fn, b in (
-        ("landmark_b128", lambda: landmarks(pose), BATCH),
-        ("swap_b128", lambda: swap(app, pose), BATCH),
-        ("landmark_b1", lambda: landmarks(pose1), 1),
-        ("swap_b1", lambda: swap(app1, pose1), 1),
-    ):
-        p50, p90 = p50_p90(cuda_times(fn))
-        t[f"{name}_ms_p50"], t[f"{name}_ms_p90"] = p50, p90
-        t[f"{name}_images_per_s"] = b / p50 * 1e3
-    emit("serving", card=smi, reps=100, **t)
+    with timed("serving_timing"):
+        for name, fn, b in (
+            ("landmark_b128", lambda: landmarks(pose), BATCH),
+            ("swap_b128", lambda: swap(app, pose), BATCH),
+            ("landmark_b1", lambda: landmarks(pose1), 1),
+            ("swap_b1", lambda: swap(app1, pose1), 1),
+        ):
+            p50, p90 = p50_p90(cuda_times(fn))
+            t[f"{name}_ms_p50"], t[f"{name}_ms_p90"] = p50, p90
+            t[f"{name}_images_per_s"] = b / p50 * 1e3
+        emit("serving", card=smi, reps=100, **t)
 
-    hm = torch.randn((BATCH, 16, 16, 10), generator=gen, device=dev) * 3.0
-    kernel_fn = lambda: landmark_bottleneck(hm, (16, 16), 10.0, impl="pallas")  # noqa: E731
-    plain_fn = lambda: _bottleneck_reference(hm, (16, 16), 10.0, 1.0, "rot")  # noqa: E731
-    bound_ms, bound_by = bottleneck_bound(BATCH, 16, 16, 10, 16, 16)
-    kernel_ms, plain_ms = profiled_device_ms(kernel_fn), profiled_device_ms(plain_fn)
-    # per call with the host's issue time: 20 runs of 50 back-to-back calls
-    emit("kernel_timing", card=smi, kernel="bottleneck_fwd", shape=[BATCH, 16, 16, 10],
-         ms=kernel_ms, plain_ms=plain_ms,
-         call_ms=statistics.median(cuda_times(kernel_fn, reps=20, inner=50)),
-         plain_call_ms=statistics.median(cuda_times(plain_fn, reps=20, inner=50)),
-         bound_ms=bound_ms, bound_by=bound_by)
+    # Training: CUDA events around each optimizer step (one step per call),
+    # 30 steps after 3 warm-up steps; and the pair synthesis alone.
+    with timed("training_timing"):
+        cfg = smoke_config(1)
+        exp1 = build_experiment(cfg, total_steps=1)
+        exp1.model.load_state_dict(exp.model.state_dict())
+        gen = torch.Generator(dev).manual_seed(8)
+        step = lambda: exp1.step_fn(exp1.state, gen)  # noqa: E731
+        p50, p90 = p50_p90(cuda_times(step, reps=30, warmup=3))
+        faces, pair = SyntheticBlobFaces(image_size=cfg.model.image_size), PairSynthesizer(cfg.pair)
+
+        def synth():
+            with torch.no_grad():
+                pair.pair_with_params(gen, faces.sample(gen, BATCH)["image"])
+
+        synth_p50, _ = p50_p90(cuda_times(synth, reps=30, warmup=3))
+        w0 = time.perf_counter()
+        for _ in range(10):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - w0) * 1e2
+        emit("training", card=smi, preset="synthetic_best", batch=BATCH, reps=30,
+             step_ms_p50=p50, step_ms_p90=p90, images_per_s=BATCH / p50 * 1e3,
+             step_wall_ms_mean_of_10=wall_ms, pair_synthesis_ms_p50=synth_p50,
+             pair_synthesis_share=synth_p50 / p50,
+             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+        # Where one step's device time goes (torch.profiler, one step).
+        step()
+        torch.cuda.synchronize()
+        rows, wall_ms = profiled_kernels(step, calls=1)
+        device_ms = sum(us for _, _, us in rows) / 1e3
+        emit("train_profile", card=smi, batch=BATCH, wall_ms_under_profiler=wall_ms,
+             kernel_ms=device_ms, idle_share=1.0 - device_ms / wall_ms, kernels=len(rows),
+             launches=sum(c for _, c, _ in rows), by_kind=by_kind(rows),
+             top=[[short_name(name), count, us / 1e3] for name, count, us in rows[:16]])
+        del exp1
+
+    # Kernels at the main paths' shapes: device time from the profiler.
+    gen = torch.Generator(dev).manual_seed(9)
+    timings = {}
+    with timed("kernel_timing"):
+        shape, out_hw = (BATCH, 16, 16, 10), (16, 16)
+        hm = (torch.randn(shape, generator=gen, device=dev) * 3.0).requires_grad_()
+        k1 = lambda: landmark_bottleneck(hm.detach(), out_hw, 10.0, impl="pallas")  # noqa: E731
+        k1_plain = lambda: _bottleneck_reference(hm.detach(), out_hw, 10.0, 1.0, "rot")  # noqa: E731
+        timings["bottleneck_fwd"] = (
+            profiled_device_ms(k1, only="bottleneck_fwd_kernel"), profiled_device_ms(k1_plain),
+            *bottleneck_bound(*shape, *out_hw), None)
+        c_r, m_r = _bottleneck_reference(hm, out_hw, 10.0, 1.0, "rot")
+        dc = torch.randn(c_r.shape, generator=gen, device=dev)
+        dm = torch.randn(m_r.shape, generator=gen, device=dev)
+        k2 = lambda: fused._launch_bwd(hm.detach(), dc, dm, out_hw, 10.0, 1.0)  # noqa: E731
+        k2_plain = lambda: torch.autograd.grad([c_r, m_r], hm, [dc, dm], retain_graph=True)  # noqa: E731
+        timings["bottleneck_bwd"] = (
+            profiled_device_ms(k2, only="bottleneck_bwd_kernel"), profiled_device_ms(k2_plain),
+            *bottleneck_bwd_bound(*shape, *out_hw), None)
+
+        images = torch.rand((BATCH, 128, 128, 3), generator=gen, device=dev).requires_grad_()
+        _, grid = synthetic_best_pair_grid(gen, BATCH, 128)
+        grid = grid.contiguous().requires_grad_()
+        img_d, grid_d = images.detach(), grid.detach()
+        # the library call for the same function: grid_sample on the NCHW view
+        # with the grid flipped to (x, y); timed here, used nowhere in the port
+        nchw, grid_xy = images.permute(0, 3, 1, 2), grid.flip(-1)
+        sample = lambda i, g: F.grid_sample(  # noqa: E731
+            i, g, mode="bilinear", padding_mode="border", align_corners=True)
+        lib_out = sample(nchw, grid_xy)
+        lib_err = (lib_out.permute(0, 2, 3, 1) - bilinear_sample(img_d, grid_d)).abs().max().item()
+        check(lib_err <= 1e-4, f"grid_sample computes another function: {lib_err}")
+        k3 = lambda: warp._launch_fwd(img_d, grid_d)  # noqa: E731
+        k3_plain = lambda: bilinear_sample(img_d, grid_d)  # noqa: E731
+        k3_lib = lambda: sample(nchw.detach(), grid_xy.detach())  # noqa: E731
+        dims = (BATCH, 128, 128, 3, 128, 128, 4)
+        timings["warp_fwd"] = (
+            profiled_device_ms(k3, 20, only="warp_fwd_kernel"), profiled_device_ms(k3_plain, 20),
+            *warp_bound(*dims), profiled_device_ms(k3_lib, 20))
+        plain_out = bilinear_sample(images, grid)
+        cot = torch.randn(plain_out.shape, generator=gen, device=dev)
+        k4 = lambda: warp._launch_bwd(img_d, grid_d, cot)  # noqa: E731
+        k4_plain = lambda: torch.autograd.grad(plain_out, (images, grid), cot, retain_graph=True)  # noqa: E731
+        k4_lib = lambda: torch.autograd.grad(lib_out, (images, grid), cot.permute(0, 3, 1, 2), retain_graph=True)  # noqa: E731
+        timings["warp_bwd"] = (
+            profiled_device_ms(k4, 20, only="warp_bwd_kernel"), profiled_device_ms(k4_plain, 20),
+            *warp_bwd_bound(*dims), profiled_device_ms(k4_lib, 20))
+        # the wrappers' whole device time (K4's includes zeroing d_images), and
+        # per call with the host's issue time: 20 runs of 50 back-to-back calls
+        whole = {"bottleneck_fwd": (k1, k1_plain, 50), "bottleneck_bwd": (k2, k2_plain, 50),
+                 "warp_fwd": (k3, k3_plain, 10), "warp_bwd": (k4, k4_plain, 10)}
+        for name, (ms, plain_ms, bound_ms, bound_by, library_ms) in timings.items():
+            fn, plain_fn, inner = whole[name]
+            emit("kernel_timing", card=smi, kernel=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                 bound_by=bound_by, library_ms=library_ms, times_bound=ms / bound_ms,
+                 wrapper_device_ms=profiled_device_ms(fn, 20),
+                 call_ms=statistics.median(cuda_times(fn, reps=20, inner=inner)),
+                 plain_call_ms=statistics.median(cuda_times(plain_fn, reps=20, inner=inner)))
 
     # Where the swap forward's device time goes (torch.profiler, one call).
     swap(app, pose)
@@ -265,23 +686,58 @@ def main() -> int:
     rows, wall_ms = profiled_kernels(lambda: swap(app, pose), calls=1)
     device_ms = sum(us for _, _, us in rows) / 1e3
     emit("swap_profile", card=smi, batch=BATCH, wall_ms_under_profiler=wall_ms,
-         kernel_ms=device_ms, idle_share=1.0 - device_ms / wall_ms,
-         top=[[name[:70], count, us / 1e3] for name, count, us in rows[:12]])
+         kernel_ms=device_ms, idle_share=1.0 - device_ms / wall_ms, by_kind=by_kind(rows),
+         top=[[short_name(name), count, us / 1e3] for name, count, us in rows[:12]])
+    return timings
 
-    # 6. Kernels summary; 7. the result line.
+
+KERNELS = (  # name, source, the TPU kernel it replaces
+    ("bottleneck_fwd", "imm_tpu_torch/csrc/bottleneck_fwd.cu", "imm_tpu/ops/fused.py:52"),
+    ("bottleneck_bwd", "imm_tpu_torch/csrc/bottleneck_bwd.cu", "imm_tpu/ops/fused.py:111"),
+    ("warp_fwd", "imm_tpu_torch/csrc/warp_fwd.cu", "imm_tpu/ops/warp_pallas.py:59"),
+    ("warp_bwd", "imm_tpu_torch/csrc/warp_bwd.cu", "imm_tpu/ops/warp_pallas.py:129"),
+)
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+    smi, kind = device_phase()
+    dev = torch.device("cuda")
+    with timed("build"):
+        build_phase()
+    with timed("kernel_checks"):
+        errs = kernel_checks(dev)
+    with timed("serving_slice"):
+        serving = serving_slice(dev)
+    with timed("training_slice"):
+        exp, train_launches = training_slice(dev)
+    with timed("warp_grad_slice"):
+        k4_launches = warp_grad_slice(dev)
+    timings = timing_phases(dev, smi, serving, exp)
+    PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 3)
+    emit("phase_seconds", **PHASE_SECONDS)
+
+    # Launches on the main paths, each read right after its own run with the
+    # counts set to 0 just before: serving (K1) plus training (K1, K2, K3),
+    # and the warp-gradient path for K4.
+    launches = dict(train_launches)
+    launches["bottleneck_fwd"] += serving["launches"]
+    launches["warp_bwd"] = k4_launches
+    for name, count in launches.items():
+        check(count > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [{
-        "name": "bottleneck_fwd",
+        "name": name,
         "route": "cuda",
-        "source": "imm_tpu_torch/csrc/bottleneck_fwd.cu",
-        "replaces": "imm_tpu/ops/fused.py:52",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}), flush=True)
+        "source": source,
+        "replaces": replaces,
+        "launches": launches[name],
+        "max_abs_err": errs[name],
+        "ms": timings[name][0],
+        "plain_ms": timings[name][1],
+        "bound_ms": timings[name][2],
+        "bound_by": timings[name][3],
+        "library_ms": timings[name][4],
+    } for name, source, replaces in KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of ``imm_tpu``: unsupervised landmarks through conditional
-image generation (IMM, NeurIPS 2018), served on an NVIDIA Hopper GPU.
+image generation (IMM, NeurIPS 2018), trained and served on an NVIDIA Hopper
+GPU.
 
 The JAX package ``imm_tpu`` is the reference; this package keeps its public
 names and layouts (NHWC images, (B, h, w, K) heatmaps, (B, K, 2) (y, x)

@@ -13,6 +13,12 @@ Module paths: ``content_encoder/trunk/ConvBlock_{i}`` ->
 ``content_encoder.trunk.blocks.{i}``, the same under ``pose_encoder``,
 ``pose_encoder/heatmap_head``, ``decoder/ConvBlock_{i}`` ->
 ``decoder.blocks.{i}``, ``decoder/to_rgb``.
+
+The same mapping carries a single collection (``collection_from_flax``: a
+parameter, gradient or optimizer-moment tree to the port's parameter names)
+and runs backwards (``to_flax``), so a test can compare one optimizer step
+leaf by leaf. ``vgg_from_flax`` and ``tps_params_to_numpy`` carry the VGG
+parameters and warp parameters across as numpy.
 """
 
 from __future__ import annotations
@@ -97,3 +103,74 @@ def save_npz(variables, path) -> None:
     """Write flax variables (nested dicts of arrays) to an ``.npz`` that
     ``from_flax`` and ``cli.generate --weights`` read."""
     np.savez(path, **flatten_variables(variables))
+
+
+def collection_from_flax(tree, collection: str = "params") -> dict[str, torch.Tensor]:
+    """One flax collection (nested dicts: parameters, their gradients, Adam
+    moments, or ``batch_stats``) -> tensors under the port's names."""
+    return from_flax({collection: tree})
+
+
+def to_flax(state: dict, norm: str = "batch") -> dict:
+    """The port's ``state_dict`` (or any dict under its names) -> flax
+    variables ``{"params": ..., "batch_stats": ...}`` as nested dicts of numpy
+    arrays: the inverse of ``from_flax``. ``norm`` names the norm layer
+    (``BatchNorm_0`` for 'batch', ``GroupNorm_0`` for 'group')."""
+    norm_name = {"batch": "BatchNorm_0", "group": "GroupNorm_0"}.get(norm, "BatchNorm_0")
+    out: dict = {}
+    for name, value in state.items():
+        *path, leaf = name.split(".")
+        value = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) else np.asarray(value)
+        parts, under_norm, i = [], False, 0
+        while i < len(path):
+            if path[i] == "blocks":
+                parts.append(f"ConvBlock_{path[i + 1]}")
+                i += 2
+                continue
+            if path[i] == "conv":
+                parts.append("Conv_0")
+            elif path[i] == "norm":
+                parts.append(norm_name)
+                under_norm = True
+            else:
+                parts.append(path[i])
+            i += 1
+        if leaf in ("running_mean", "running_var"):
+            collection, key = "batch_stats", leaf[len("running_"):]
+        elif under_norm:
+            collection, key = "params", {"weight": "scale", "bias": "bias"}[leaf]
+        elif leaf == "weight":
+            collection, key, value = "params", "kernel", value.transpose(2, 3, 1, 0)
+        else:
+            collection, key = "params", "bias"
+        node = out.setdefault(collection, {})
+        for part in parts:
+            node = node.setdefault(part, {})
+        node[key] = value
+    return out
+
+
+def vgg_from_flax(params) -> dict:
+    """VGG16 parameters of the JAX package (the flax tree, or the path of an
+    ``.npz`` either package wrote) -> the numpy tree that
+    ``VGG16Features.load_params`` and ``ReconstructionLoss(vgg_params=...)``
+    take."""
+    if isinstance(params, (str, bytes)) or hasattr(params, "__fspath__"):
+        from imm_tpu_torch.models.vgg import load_vgg16_params
+
+        return load_vgg16_params(params)
+    return {
+        name: {"kernel": np.asarray(leaf["kernel"], np.float32),
+               "bias": np.asarray(leaf["bias"], np.float32)}
+        for name, leaf in params.items()
+    }
+
+
+def tps_params_to_numpy(params) -> tuple[np.ndarray, ...]:
+    """``TPSParams`` of either package -> (rot, log_scale, trans, cp_delta) as
+    float32 numpy arrays."""
+    return tuple(
+        x.detach().cpu().numpy().astype(np.float32) if isinstance(x, torch.Tensor)
+        else np.asarray(x, np.float32)
+        for x in params
+    )

@@ -21,6 +21,7 @@ Numerics kept from flax:
 
 from __future__ import annotations
 
+import contextlib
 import math
 from collections.abc import Sequence
 
@@ -72,11 +73,15 @@ class FlaxBatchNorm(nn.Module):
     """BatchNorm with flax's conventions (see the module docstring).
 
     State names match ``nn.BatchNorm2d`` (``weight``, ``bias``,
-    ``running_mean``, ``running_var``)."""
+    ``running_mean``, ``running_var``). In train mode the running statistics
+    are updated in place, unless ``update_stats`` is off
+    (``batch_stats_frozen``): the pass then still normalises with its batch's
+    statistics and leaves the buffers alone."""
 
     def __init__(self, features, momentum=0.9, eps=1e-5, dtype=torch.float32):
         super().__init__()
         self.momentum, self.eps, self.compute_dtype = momentum, eps, dtype
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -97,12 +102,29 @@ class FlaxBatchNorm(nn.Module):
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = xf.var(dim=(0, 2, 3), unbiased=False)
-        with torch.no_grad():
-            self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
-            self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+                self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
         scale = self.weight * torch.rsqrt(var + self.eps)
         y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
         return y.to(self.compute_dtype)
+
+
+@contextlib.contextmanager
+def batch_stats_frozen(module: nn.Module):
+    """Within the block, train-mode BatchNorm layers of ``module`` normalise
+    with batch statistics but do not touch their running statistics: a second
+    pass whose statistics are discarded (flax's ``mutable`` output dropped)."""
+    norms = [m for m in module.modules() if isinstance(m, FlaxBatchNorm)]
+    before = [m.update_stats for m in norms]
+    for m in norms:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, before):
+            m.update_stats = flag
 
 
 class FlaxGroupNorm(nn.GroupNorm):

@@ -32,6 +32,18 @@ KERNELS = {
         "bottleneck_fwd.cu",
         ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P), ctypes.c_int),
     ),
+    "bottleneck_bwd": (
+        "bottleneck_bwd.cu",
+        ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _P), ctypes.c_int),
+    ),
+    "warp_fwd": (
+        "warp_fwd.cu",
+        ((_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    ),
+    "warp_bwd": (
+        "warp_bwd.cu",
+        ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+    ),
 }
 
 

@@ -1,0 +1,117 @@
+"""The bilinear warp as two CUDA kernels behind one ``autograd.Function``.
+
+The counterpart of ``imm_tpu.ops.warp_pallas``: ``warp_bilinear`` has the
+semantics and signature of ``ops.image.bilinear_sample`` (its plain PyTorch
+version) and runs ``csrc/warp_fwd.cu`` forward and ``csrc/warp_bwd.cu``
+backward. The TPU kernels recast the gather as one-hot matrix products; on
+this card both are direct: a gather forward, a scatter with atomics backward.
+
+As in the Pallas wrapper, the backward kernel returns the cotangent of the
+*clipped pixel* coordinates; the clip's own gradient (0.5 at an exact tie,
+``ops.image.clip_gradient_mask``) and the [-1, 1] -> pixel scale are chained
+here, outside the kernel.
+
+A CPU tensor never reaches a kernel: ``warp_bilinear`` raises on one, and
+``ops.tps.warp_image(impl='auto')`` takes ``bilinear_sample`` there.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from imm_tpu_torch.ops import _build
+from imm_tpu_torch.ops.image import clip_gradient_mask, pixel_coords
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check(images, grid):
+    if not (images.is_cuda and grid.is_cuda):
+        raise ValueError("the warp kernel needs CUDA tensors; use impl='xla' on the CPU")
+    if images.dtype not in _DTYPES:
+        raise TypeError(f"the warp kernel takes float32 or bfloat16 images, got {images.dtype}")
+    if images.ndim != 4 or grid.ndim != 4 or grid.shape[-1] != 2:
+        raise ValueError(
+            f"expected (B, H, W, C) images and a (B, Ho, Wo, 2) grid, got "
+            f"{tuple(images.shape)} and {tuple(grid.shape)}"
+        )
+    if images.shape[0] != grid.shape[0]:
+        raise ValueError(f"batch sizes differ: {images.shape[0]} images, {grid.shape[0]} grids")
+
+
+def _launch_fwd(images, grid):
+    b, h, w, c = images.shape
+    _, ho, wo, _ = grid.shape
+    out = torch.empty((b, ho, wo, c), dtype=images.dtype, device=images.device)
+    if out.numel() == 0:
+        return out
+    fn = _build.load("warp_fwd")
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(
+            images.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c, ho, wo,
+            int(images.dtype == torch.bfloat16), stream,
+        )
+    _build.check("warp_fwd", code)
+    warp_bilinear.launches += 1
+    return out
+
+
+def _launch_bwd(images, grid, cotangent):
+    """-> (d_images f32, d_fy, d_fx): the scatter and the cotangents of the
+    clipped pixel coordinates."""
+    b, h, w, c = images.shape
+    _, ho, wo, _ = grid.shape
+    d_images = torch.zeros((b, h, w, c), dtype=torch.float32, device=images.device)
+    d_fy = torch.empty((b, ho, wo), dtype=torch.float32, device=images.device)
+    d_fx = torch.empty_like(d_fy)
+    if d_fy.numel() == 0 or c == 0:
+        return d_images, d_fy.zero_(), d_fx.zero_()
+    fn = _build.load("warp_bwd")
+    with torch.cuda.device(images.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = fn(
+            images.data_ptr(), grid.data_ptr(), cotangent.data_ptr(), d_images.data_ptr(),
+            d_fy.data_ptr(), d_fx.data_ptr(), b, h, w, c, ho, wo,
+            int(images.dtype == torch.bfloat16), stream,
+        )
+    _build.check("warp_bwd", code)
+    warp_bilinear.bwd_launches += 1
+    return d_images, d_fy, d_fx
+
+
+class _WarpCuda(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, images, grid):
+        ctx.save_for_backward(images, grid)
+        return _launch_fwd(images, grid)
+
+    @staticmethod
+    def backward(ctx, cotangent):
+        images, grid = ctx.saved_tensors
+        _, h, w, _ = images.shape
+        cotangent = cotangent.to(images.dtype).contiguous()
+        d_images, d_fy, d_fx = _launch_bwd(images, grid, cotangent)
+        d_grid = None
+        if ctx.needs_input_grad[1]:
+            fy_raw, fx_raw = pixel_coords(grid, h, w)
+            dgy = d_fy * clip_gradient_mask(fy_raw, 0.0, float(h - 1)) * (0.5 * (h - 1))
+            dgx = d_fx * clip_gradient_mask(fx_raw, 0.0, float(w - 1)) * (0.5 * (w - 1))
+            d_grid = torch.stack([dgy, dgx], dim=-1)
+        return d_images.to(images.dtype), d_grid
+
+
+def warp_bilinear(images: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """``bilinear_sample`` on the card: ``(B,H,W,C)`` f32 or bf16 images at a
+    ``(B,Ho,Wo,2)`` (y, x) grid -> ``(B,Ho,Wo,C)`` in the images' dtype.
+    Differentiable in both arguments.
+
+    ``warp_bilinear.launches`` counts the forward kernel's launches,
+    ``warp_bilinear.bwd_launches`` the backward kernel's.
+    """
+    _check(images, grid)
+    return _WarpCuda.apply(images.contiguous(), grid.to(torch.float32).contiguous())
+
+
+warp_bilinear.launches = 0
+warp_bilinear.bwd_launches = 0

@@ -1,10 +1,10 @@
 """Experiment configuration: dataclasses + YAML round-trip. Mirrors
 ``imm_tpu.utils.config``, so one YAML file loads into either package.
 
-``PairConfig``, ``PerceptualLossConfig`` and ``TrainConfig`` are declarations
-only here, with the JAX package's field names and defaults; the code they
-configure (pair synthesis, the perceptual loss, the trainer) is not ported
-yet (ROADMAP.md, Queue 1).
+``PairConfig``, ``PerceptualLossConfig`` and ``TrainConfig`` are declared here,
+with the JAX package's field names and defaults, and configure
+``data.pairs.PairSynthesizer``, ``losses.perceptual.ReconstructionLoss`` and
+``train`` (the optimizer and the step factories).
 """
 
 from __future__ import annotations

@@ -79,6 +79,30 @@ def test_bottleneck_matches_jax_pallas_and_xla(shape, out_hw, temperature):
         np.testing.assert_allclose(n(m), n(want_m), atol=1e-5)
 
 
+@pytest.mark.parametrize("use_maps", [True, False], ids=["coords_and_maps", "dmaps_unused"])
+@pytest.mark.parametrize("shape,out_hw", [((2, 8, 8, 4), (8, 8)), ((3, 8, 6, 5), (12, 16))])
+def test_bottleneck_gradient_matches_jax_pallas_backward(use_maps, shape, out_hw):
+    """The gradient to the heatmaps against ``_bottleneck_pallas``'s backward
+    kernel in interpret mode, with the loss of ``tests/test_fused.py`` (atol
+    1e-5, as that file holds the kernel to its XLA path), and with the maps
+    unused, as the equivariance pass leaves them. On the CPU the port
+    differentiates the plain version, the reference of its own backward
+    kernel."""
+    from imm_tpu.ops.fused import _bottleneck_pallas
+
+    hm = np.asarray(jax.random.normal(jax.random.PRNGKey(1), shape))
+
+    def jax_loss(h):
+        c, m = _bottleneck_pallas(h, out_hw, 8.0, 1.0, 2)
+        return jnp.sum(c**2) + (jnp.sum(jnp.sin(m)) if use_maps else 0.0)
+
+    th = t(hm).requires_grad_()
+    c, m = landmark_bottleneck(th, out_hw, 8.0)
+    loss = (c**2).sum() + (torch.sin(m).sum() if use_maps else 0.0)
+    (g,) = torch.autograd.grad(loss, th)
+    np.testing.assert_allclose(n(g), n(jax.grad(jax_loss)(jnp.asarray(hm))), atol=1e-5)
+
+
 @pytest.mark.parametrize("mode", ["flat", "ankush"])
 def test_bottleneck_other_modes_match_jax(mode):
     hm = _heatmaps((2, 8, 8, 3), seed=4)

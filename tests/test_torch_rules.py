@@ -81,6 +81,45 @@ def test_generate_cli_raises_without_cuda(monkeypatch, tmp_path):
     assert not out.exists()
 
 
+def test_train_cli_and_build_experiment_raise_without_cuda(monkeypatch):
+    from imm_tpu_torch.cli.train import main
+    from imm_tpu_torch.configs import get_preset
+    from imm_tpu_torch.experiment import build_experiment
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--preset", "tiny_cpu", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_experiment(get_preset("tiny_cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_experiment(get_preset("tiny_cpu"), device="cuda")
+    exp = build_experiment(get_preset("tiny_cpu"), device="cpu", total_steps=1)
+    assert exp.device == torch.device("cpu")
+    assert all(p.device.type == "cpu" for p in exp.model.parameters())
+
+
+def test_train_cli_runs_on_the_cpu_when_asked():
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run(
+        [sys.executable, "-m", "imm_tpu_torch.cli.train", "--preset", "tiny_cpu",
+         "--device", "cpu", "--steps", "4"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "finished at step 4" in proc.stderr
+    assert "final landmark_error_test_pct" in proc.stderr
+
+
+def test_synthetic_best_needs_its_weights_under_the_working_directory(monkeypatch, tmp_path):
+    from imm_tpu_torch.configs import get_preset
+    from imm_tpu_torch.experiment import build_experiment
+
+    assert (ROOT / get_preset("synthetic_best").loss.trained_weights).exists()
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises(FileNotFoundError, match="trained_features_noise"):
+        build_experiment(get_preset("synthetic_best"), device="cpu")
+
+
 def test_sweep_raises_without_cuda(monkeypatch):
     import numpy as np
 
@@ -96,6 +135,33 @@ def test_kernel_refuses_cpu_tensor():
 
     with pytest.raises(ValueError, match="CUDA tensor"):
         landmark_bottleneck(torch.zeros(2, 8, 8, 3), (8, 8), 5.0, impl="pallas")
+
+
+def test_warp_kernel_refuses_cpu_tensor():
+    from imm_tpu_torch.ops.tps import TPSParams, warp_image
+    from imm_tpu_torch.ops.warp import warp_bilinear
+
+    images, grid = torch.zeros(2, 8, 8, 3), torch.zeros(2, 8, 8, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        warp_bilinear(images, grid)
+    params = TPSParams(torch.zeros(2), torch.zeros(2), torch.zeros(2, 2), torch.zeros(2, 16, 2))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        warp_image(images, params, impl="pallas")
+    assert warp_bilinear.launches == 0 and warp_bilinear.bwd_launches == 0
+
+
+def test_every_kernel_is_registered_with_its_source():
+    from imm_tpu_torch.ops import _build
+
+    assert set(_build.KERNELS) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd"}
+    for name, (source, (argtypes, _)) in _build.KERNELS.items():
+        text = (_build.CSRC / source).read_text()
+        assert f'extern "C" int {name}(' in text, name
+        # one ctypes argument per parameter of the C entry point
+        signature = text.split(f'extern "C" int {name}(')[1].split(")")[0]
+        assert len(argtypes) == signature.count(",") + 1, name
+        for banned in ("cublas", "cudnn", "cutlass", "torch/extension.h"):
+            assert banned not in text.lower(), (name, banned)
 
 
 def test_build_lives_in_an_ignored_directory():
