@@ -17,8 +17,10 @@ B=128) through their entry points:
   warp parameters), the path of the warp's backward kernel, which training
   does not take.
 
-It checks the launch counts and the outputs, times the paths and the kernels,
-and prints one JSON line per phase. The last two lines are the ``kernels``
+It checks the launch counts and the outputs, times the paths and the kernels
+(the two bottleneck kernels also at B=1, one block: the bare chain of
+dependent steps; the warp's backward also with every block on its direct
+path), and prints one JSON line per phase. The last two lines are the ``kernels``
 summary and ``{"ok": true, "device": {...}}``. Any failure raises and exits
 non-zero; without CUDA it exits non-zero before any result. It imports
 nothing of JAX.
@@ -246,20 +248,32 @@ def synthetic_best_pair_grid(gen, batch, size):
     return params, tps.tps_sampler_grid(params, (size, size), c.n_grid)
 
 
+def warp_bwd_blocks(grid) -> int:
+    """How many blocks the warp's backward launches for ``grid``."""
+    from imm_tpu_torch.ops.warp import BWD_TILE
+
+    b, ho, wo, _ = grid.shape
+    return b * math.ceil(ho / BWD_TILE[0]) * math.ceil(wo / BWD_TILE[1])
+
+
 def kernel_checks(dev) -> dict[str, float]:
     """Each kernel against its plain version on the card; -> the largest
     absolute error seen per kernel."""
     from imm_tpu_torch.ops.fused import _bottleneck_reference, landmark_bottleneck
+    from imm_tpu_torch.ops import warp
     from imm_tpu_torch.ops.image import bilinear_sample, normalized_grid
     from imm_tpu_torch.ops.warp import warp_bilinear
 
     gen = torch.Generator(dev).manual_seed(0)
     errs = dict.fromkeys(("bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd"), 0.0)
 
-    def record(kernel, err, tol, **fields):
+    def record(kernel, err, tol, summary=True, **fields):
+        """``summary=False`` keeps a result rounded to bf16 out of the
+        kernel's largest f32 error."""
         emit("kernel_check", kernel=kernel, max_abs_err=err, atol=tol, **fields)
         check(err <= tol, f"{kernel} differs from its plain version by {err} (atol {tol}): {fields}")
-        errs[kernel] = max(errs[kernel], err)
+        if summary:
+            errs[kernel] = max(errs[kernel], err)
 
     # Bottleneck, forward and backward. Tolerance 1e-5 (f32): kernel and plain
     # version differ only in expf against torch.exp and in summation order.
@@ -267,6 +281,10 @@ def kernel_checks(dev) -> dict[str, float]:
         ((BATCH, 16, 16, 10), (16, 16), 1.0),  # the presets' shape
         ((5, 16, 16, 30), (16, 16), 1.0),  # odd batch, the largest K of the presets
         ((4, 16, 16, 10), (32, 32), 0.5),  # out_hw != input hw, another temperature
+        ((4, 16, 16, 16), (16, 16), 1.0),  # K of the 16-landmark presets
+        ((4, 16, 16, 20), (16, 16), 1.0),  # K of the 20-landmark presets
+        ((4, 8, 8, 10), (8, 8), 1.0),  # 64 px images: an 8 x 8 map
+        ((2, 32, 32, 10), (32, 32), 1.0),  # 256 px images: the backward's strided route
     ]
     for shape, out_hw, temp in cases:
         fields = dict(shape=list(shape), out_hw=list(out_hw), temperature=temp)
@@ -289,15 +307,27 @@ def kernel_checks(dev) -> dict[str, float]:
         torch.cuda.synchronize()
         record("bottleneck_bwd", (g_k - g_r).abs().max().item(), TOL_KERNEL, dmaps=False, **fields)
 
-    # Warp, forward and backward, on one set of cases.
+    # Warp, forward and backward, on one set of cases. The backward reports
+    # the share of its blocks whose footprint was too large for shared memory.
     images = torch.rand((BATCH, 128, 128, 3), generator=gen, device=dev)
     _, tps_grid = synthetic_best_pair_grid(gen, BATCH, 128)
-    identity = normalized_grid(128, 128, device=dev)[None].repeat(4, 1, 1, 1)
+
+    def plain_grid(ho, wo, n=4):
+        return normalized_grid(ho, wo, device=dev)[None].repeat(n, 1, 1, 1)
+
     warp_cases = [
         ("tps_grid_synthetic_best", images, tps_grid, TOL_KERNEL),
         ("coordinates_in_pm3", images[:4], torch.rand((4, 128, 128, 2), generator=gen, device=dev) * 6 - 3, TOL_KERNEL),
-        ("nonsquare_output", images[:4], normalized_grid(48, 80, device=dev)[None].repeat(4, 1, 1, 1) + 0.05, TOL_KERNEL),
-        ("identity_grid_border_ties", images[:4], identity, TOL_KERNEL),
+        ("nonsquare_output", images[:4], plain_grid(48, 80) + 0.05, TOL_KERNEL),
+        ("identity_grid_border_ties", images[:4], plain_grid(128, 128), TOL_KERNEL),
+        # 16 output pixels on every source pixel: contention on one accumulator cell
+        ("zoom_in_4x", images[:4], plain_grid(128, 128) * 0.25 + 0.1, TOL_KERNEL),
+        # output pixels 4 source pixels apart: a tile's footprint is 61 x 61, the direct path
+        ("zoom_out_4x", images[:4], plain_grid(32, 32) * 0.98, TOL_KERNEL),
+        # an output size that leaves ragged tiles on both edges (4 rows, 14
+        # columns), at about unit scale: every tile, the ragged ones too, is staged
+        ("ragged_output", images[:4], plain_grid(100, 110) * 0.9
+         + torch.randn((4, 100, 110, 2), generator=gen, device=dev) * 0.01, TOL_KERNEL),
         ("bf16_images", images[:8].bfloat16(), tps_grid[:8], TOL_WARP_BF16),
     ]
     for name, img, grid, tol in warp_cases:
@@ -306,17 +336,32 @@ def kernel_checks(dev) -> dict[str, float]:
         torch.cuda.synchronize()
         fields = dict(case=name, images=list(img.shape), grid=list(grid.shape), dtype=str(img.dtype))
         record("warp_fwd", (out_k.float() - out_r.float()).abs().max().item(), tol, **fields)
-        if img.dtype != torch.float32:
-            continue  # the plain backward in bf16 arithmetic is no reference for an f32 kernel
         cot = torch.randn(out_r.shape, generator=gen, device=dev)
         if name == "identity_grid_border_ties":
             cot = 2.0 * out_r.detach()  # the gradient of sum(y^2): the tie rule's test
+        ref_in = (img, grid)
+        if img.dtype != torch.float32:
+            # The plain backward in bf16 arithmetic is no reference for a kernel
+            # that computes in f32: the reference runs in f32 on the same
+            # bf16-rounded images and cotangents.
+            cot = cot.to(img.dtype)
+            ref_in = (img.detach().float().requires_grad_(), grid.detach().clone().requires_grad_())
+            out_r = bilinear_sample(*ref_in)
         g_k = torch.autograd.grad(out_k, (img, grid), cot)
-        g_r = torch.autograd.grad(out_r, (img, grid), cot)
+        g_r = torch.autograd.grad(out_r, ref_in, cot.float())
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        warp._launch_bwd(img.detach(), grid.detach().contiguous(), cot, direct_blocks=count)
         torch.cuda.synchronize()
+        fields["direct_share"] = count.item() / warp_bwd_blocks(grid)
         for which, a, b in zip(("d_images", "d_grid"), g_k, g_r):
-            tol_g = TOL_GRAD_REL * max(1.0, b.abs().max().item())
-            record("warp_bwd", (a - b).abs().max().item(), tol_g, gradient=which, **fields)
+            # d_images comes back in the images' dtype: one rounding to bf16
+            rel = 2.0**-8 if a.dtype == torch.bfloat16 else TOL_GRAD_REL
+            record("warp_bwd", (a.float() - b).abs().max().item(), rel * max(1.0, b.abs().max().item()),
+                   summary=a.dtype == torch.float32, gradient=which, **fields)
+        want = {"zoom_out_4x": 1.0, "zoom_in_4x": 0.0, "identity_grid_border_ties": 0.0,
+                "ragged_output": 0.0, "tps_grid_synthetic_best": 0.0}.get(name)
+        check(want is None or fields["direct_share"] == want,
+              f"{name}: {fields['direct_share']} of the blocks took the direct path, expected {want}")
     return errs
 
 
@@ -632,10 +677,25 @@ def timing_phases(dev, smi, serving, exp):
         timings["bottleneck_fwd"] = (
             profiled_device_ms(k1, only="bottleneck_fwd_kernel"), profiled_device_ms(k1_plain),
             *bottleneck_bound(*shape, *out_hw), None)
+        # One image is one block: the bare chain of dependent steps plus the
+        # launch. Beside it the smallest kernel PyTorch has, a fill of one float.
+        hm1, one = hm.detach()[:1].clone(), torch.zeros(1, device=dev)
+        smallest_ms = profiled_device_ms(one.zero_)
+        extra = {"bottleneck_fwd": {"smallest_kernel_ms": smallest_ms, "ms_b1": profiled_device_ms(
+            lambda: landmark_bottleneck(hm1, out_hw, 10.0, impl="pallas"), only="bottleneck_fwd_kernel")}}
         c_r, m_r = _bottleneck_reference(hm, out_hw, 10.0, 1.0, "rot")
         dc = torch.randn(c_r.shape, generator=gen, device=dev)
         dm = torch.randn(m_r.shape, generator=gen, device=dev)
         k2 = lambda: fused._launch_bwd(hm.detach(), dc, dm, out_hw, 10.0, 1.0)  # noqa: E731
+        dc1, dm1 = dc[:1].clone(), dm[:1].clone()
+        extra["bottleneck_bwd"] = {"smallest_kernel_ms": smallest_ms, "ms_b1": profiled_device_ms(
+            lambda: fused._launch_bwd(hm1, dc1, dm1, out_hw, 10.0, 1.0), only="bottleneck_bwd_kernel")}
+        # the presets' largest K: 30 warps a block
+        hm30 = torch.randn((BATCH, 16, 16, 30), generator=gen, device=dev) * 3.0
+        dc30 = torch.randn((BATCH, 30, 2), generator=gen, device=dev)
+        dm30 = torch.randn(hm30.shape, generator=gen, device=dev)
+        extra["bottleneck_bwd"]["ms_k30"] = profiled_device_ms(
+            lambda: fused._launch_bwd(hm30, dc30, dm30, out_hw, 10.0, 1.0), only="bottleneck_bwd_kernel")
         k2_plain = lambda: torch.autograd.grad([c_r, m_r], hm, [dc, dm], retain_graph=True)  # noqa: E731
         timings["bottleneck_bwd"] = (
             profiled_device_ms(k2, only="bottleneck_bwd_kernel"), profiled_device_ms(k2_plain),
@@ -668,6 +728,15 @@ def timing_phases(dev, smi, serving, exp):
         timings["warp_bwd"] = (
             profiled_device_ms(k4, 20, only="warp_bwd_kernel"), profiled_device_ms(k4_plain, 20),
             *warp_bwd_bound(*dims), profiled_device_ms(k4_lib, 20))
+        # the share of K4's blocks that added straight to device memory on this
+        # grid, and the kernel's time when every block does (budget 0)
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        warp._launch_bwd(img_d, grid_d, cot, direct_blocks=count)
+        extra["warp_bwd"] = {
+            "direct_share": count.item() / warp_bwd_blocks(grid_d),
+            "all_direct_ms": profiled_device_ms(
+                lambda: warp._launch_bwd(img_d, grid_d, cot, footprint_floats=0), 20,
+                only="warp_bwd_kernel")}
         # the wrappers' whole device time (K4's includes zeroing d_images), and
         # per call with the host's issue time: 20 runs of 50 back-to-back calls
         whole = {"bottleneck_fwd": (k1, k1_plain, 50), "bottleneck_bwd": (k2, k2_plain, 50),
@@ -676,6 +745,7 @@ def timing_phases(dev, smi, serving, exp):
             fn, plain_fn, inner = whole[name]
             emit("kernel_timing", card=smi, kernel=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                  bound_by=bound_by, library_ms=library_ms, times_bound=ms / bound_ms,
+                 **extra.get(name, {}),
                  wrapper_device_ms=profiled_device_ms(fn, 20),
                  call_ms=statistics.median(cuda_times(fn, reps=20, inner=inner)),
                  plain_call_ms=statistics.median(cuda_times(plain_fn, reps=20, inner=inner)))

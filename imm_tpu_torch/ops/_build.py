@@ -25,6 +25,9 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+# the most dynamic shared memory one block on an H100 can use
+MAX_SMEM_BYTES = 232_448
+
 # kernel name -> (source file, C signature as (argtypes, restype))
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
@@ -42,7 +45,7 @@ KERNELS = {
     ),
     "warp_bwd": (
         "warp_bwd.cu",
-        ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
+        ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     ),
 }
 

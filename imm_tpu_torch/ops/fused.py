@@ -9,8 +9,9 @@ function:
   ``torch.autograd.Function``: the forward ``csrc/bottleneck_fwd.cu`` reads
   each heatmap from device memory once and writes coords and the 'rot' maps in
   one launch; the backward ``csrc/bottleneck_bwd.cu`` keeps the heatmaps alone
-  as its residual, recomputes the softmaxes, coords and maps in shared memory
-  and writes d(heatmaps) in one launch.
+  as its residual, recomputes the softmaxes, coords and maps in shared memory,
+  one warp to a landmark and all landmarks at once, and writes d(heatmaps) in
+  one launch.
 
 ``impl='auto'`` takes the kernels for a CUDA tensor in mode 'rot' and the
 plain version for a CPU tensor or another mode. ``impl='pallas'`` (the JAX
@@ -26,10 +27,6 @@ from imm_tpu_torch.ops import _build
 from imm_tpu_torch.ops.coords import marginal_softmax_coords
 from imm_tpu_torch.ops.gauss import render_gaussian_maps
 
-# A block holds the whole (H, W, K) map plus its marginals in shared memory;
-# 232,448 bytes is the most one block on an H100 can use.
-_MAX_SMEM_BYTES = 232_448
-
 
 def _bottleneck_reference(heatmaps, out_hw, inv_std, temperature, mode):
     coords = marginal_softmax_coords(heatmaps, temperature)
@@ -38,10 +35,10 @@ def _bottleneck_reference(heatmaps, out_hw, inv_std, temperature, mode):
 
 
 def _check_smem(shape, nbytes: int) -> None:
-    if nbytes > _MAX_SMEM_BYTES:
+    if nbytes > _build.MAX_SMEM_BYTES:
         raise ValueError(
             f"heatmaps {tuple(shape)} need {nbytes} bytes of shared memory; "
-            f"one block holds at most {_MAX_SMEM_BYTES}"
+            f"one block holds at most {_build.MAX_SMEM_BYTES}"
         )
 
 
@@ -70,8 +67,9 @@ def _launch_bwd(heatmaps, dcoords, dmaps, out_hw, inv_std, temperature):
     None (the maps went unused), which skips the render term."""
     b, h, w, k = heatmaps.shape
     oh, ow = out_hw
-    n_out = 0 if dmaps is None else oh * ow * k
-    _check_smem(heatmaps.shape, 4 * (h * w * k + n_out + (h + w) * k))
+    # landmark-major planes with odd pitches, as csrc/bottleneck_bwd.cu lays them out
+    plane, plane_out = (h * (w | 1)) | 1, 0 if dmaps is None else (oh * ow) | 1
+    _check_smem(heatmaps.shape, 4 * k * (plane + plane_out + h + w))
     # a cotangent may arrive expanded, strided or in another dtype
     if dcoords is None:
         dcoords = torch.zeros((b, k, 2), dtype=torch.float32, device=heatmaps.device)

@@ -72,7 +72,12 @@ BOTTLENECK_CASES = [
     ((5, 16, 16, 30), (16, 16), 1.0),  # odd batch, the largest K
     ((3, 16, 16, 16), (32, 32), 0.5),  # out_hw != hw
     ((2, 8, 12, 20), (12, 8), 2.0),  # non-square
-    ((2, 40, 40, 10), (40, 40), 1.0),  # above 48 KB of shared memory
+    ((2, 40, 40, 10), (40, 40), 1.0),  # above 48 KB of shared memory, the strided route
+    ((4, 16, 16, 16), (16, 16), 1.0),  # K of the 16-landmark presets
+    ((4, 16, 16, 20), (16, 16), 1.0),  # K of the 20-landmark presets
+    ((4, 8, 8, 10), (8, 8), 1.0),  # 64 px images: half of each half-warp idle
+    ((2, 16, 16, 40), (16, 16), 1.0),  # more landmarks than a block has warps
+    ((3, 5, 7, 3), (6, 9), 1.0),  # sizes that rule out 16-byte loads
 ]
 
 
@@ -121,12 +126,20 @@ def _warp_inputs(dev, name):
         grid = base
     elif name == "nonsquare_output":
         grid = normalized_grid(20, 72, device=dev)[None].repeat(4, 1, 1, 1) + 0.05
+    elif name == "zoom_in_4x":  # many output pixels on one source pixel
+        grid = base * 0.25 + 0.1
+    elif name == "zoom_out_4x":  # a tile's footprint is the whole image: the direct path
+        grid = normalized_grid(16, 12, device=dev)[None].repeat(4, 1, 1, 1) * 0.98
+    elif name == "ragged_output":  # no multiple of the backward's tile either way
+        grid = normalized_grid(50, 70, device=dev)[None].repeat(4, 1, 1, 1) * 0.9
+        grid = grid + torch.randn((4, 50, 70, 2), generator=gen, device=dev) * 0.02
     else:  # one channel, one image
         images, grid = images[:1, :, :, :1].contiguous(), base[:1] * 0.9
     return images, grid
 
 
-WARP_CASES = ["smooth", "far_out_of_range", "border_ties", "nonsquare_output", "one_channel"]
+WARP_CASES = ["smooth", "far_out_of_range", "border_ties", "nonsquare_output", "one_channel",
+              "zoom_in_4x", "zoom_out_4x", "ragged_output"]
 
 
 @pytest.mark.parametrize("case", WARP_CASES)
@@ -176,6 +189,134 @@ def test_warp_backward_kernel_matches_plain(dev, case):
         torch.testing.assert_close(a, b, rtol=0, atol=2e-5 * max(1.0, b.abs().max().item()))
     if case == "border_ties":  # 0.5 at the exact ties: the first row's y gradient is not zero
         assert g_k[1][:, 0, 1:-1, 0].abs().max().item() > 1e-3
+
+
+def _tiles(grid):
+    from imm_tpu_torch.ops.warp import BWD_TILE
+
+    b, ho, wo, _ = grid.shape
+    return b * -(-ho // BWD_TILE[0]) * -(-wo // BWD_TILE[1])
+
+
+@pytest.mark.parametrize("case", ["smooth", "zoom_in_4x", "border_ties", "ragged_output"])
+def test_warp_backward_shared_and_direct_paths_agree(dev, case):
+    """One grid at two shared-memory budgets: every tile staged, and (budget
+    0) every tile adding straight to device memory."""
+    from imm_tpu_torch.ops.warp import _launch_bwd
+
+    images, grid = _warp_inputs(dev, case)
+    grid = grid.contiguous()
+    cot = torch.randn((*grid.shape[:3], images.shape[3]),
+                      generator=torch.Generator(dev).manual_seed(7), device=dev)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
+    staged = _launch_bwd(images, grid, cot, direct_blocks=counts[0:1])
+    direct = _launch_bwd(images, grid, cot, footprint_floats=0, direct_blocks=counts[1:2])
+    torch.cuda.synchronize()
+    # "smooth" moves pixels by 5 rows or columns (1 sd): some of its tiles
+    # outgrow the default budget, and one launch mixes the two paths
+    assert counts[1].item() == _tiles(grid)
+    assert counts[0].item() < _tiles(grid) if case == "smooth" else counts[0].item() == 0
+    for a, b in zip(staged, direct):
+        torch.testing.assert_close(a, b, rtol=0, atol=2e-5 * max(1.0, b.abs().max().item()))
+
+
+def test_warp_backward_takes_the_direct_path_by_the_data(dev):
+    from imm_tpu_torch.ops.warp import _launch_bwd
+
+    images, grid = _warp_inputs(dev, "zoom_out_4x")
+    cot = torch.ones((*grid.shape[:3], 3), device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    _launch_bwd(images, grid.contiguous(), cot, direct_blocks=count)
+    assert count.item() == _tiles(grid)
+    # a budget above 48 KB of shared memory stages the same tiles
+    count.zero_()
+    d_big, _, _ = _launch_bwd(images, grid.contiguous(), cot, footprint_floats=16384,
+                              direct_blocks=count)
+    d_direct, _, _ = _launch_bwd(images, grid.contiguous(), cot, footprint_floats=0)
+    assert count.item() == 0
+    torch.testing.assert_close(d_big, d_direct, rtol=0, atol=2e-5 * d_direct.abs().max().item())
+
+
+@pytest.mark.parametrize("scale", [2.0**-60, 1e-20, 3e20])
+def test_warp_backward_keeps_its_precision_at_any_cotangent_scale(dev, scale):
+    """The shared accumulator is fixed point scaled to each tile's largest
+    cotangent: d_images of a scaled cotangent is the scaled d_images."""
+    from imm_tpu_torch.ops.warp import _launch_bwd
+
+    gen = torch.Generator(dev).manual_seed(9)
+    images, grid = _warp_inputs(dev, "border_ties")
+    grid = grid + torch.randn(grid.shape, generator=gen, device=dev) * 0.005  # a sixth of a pixel
+    cot = torch.randn((*grid.shape[:3], 3), generator=gen, device=dev)
+    cot[0, :16, :16] *= 1e-3  # one tile far below the others
+    want, _, _ = _launch_bwd(images, grid.contiguous(), cot, footprint_floats=0)
+    got, _, _ = _launch_bwd(images, grid.contiguous(), cot * scale)
+    torch.testing.assert_close(got / scale, want, rtol=0, atol=2e-5 * want.abs().max().item())
+    quiet = want[0, :8, :8]  # inside the quiet tile's footprint: held to its own size
+    torch.testing.assert_close(got[0, :8, :8] / scale, quiet, rtol=0, atol=2e-5 * quiet.abs().max().item())
+
+
+@pytest.mark.parametrize("small", [1e-3, 1e-5, 1e-8])
+def test_warp_backward_rounds_to_its_tiles_largest_cotangent(dev, small):
+    """Cotangents of mixed size inside one tile. Cells that only the small
+    ones reach are held to their own size on the direct path, and on the
+    staged path to the fixed point's bound: 2^-22 of the tile's largest
+    |cotangent| for each product that lands on the cell."""
+    from imm_tpu_torch.ops.warp import _launch_bwd
+
+    gen = torch.Generator(dev).manual_seed(10)
+    images, grid = _warp_inputs(dev, "border_ties")
+    grid = (grid + torch.randn(grid.shape, generator=gen, device=dev) * 0.005).contiguous()
+    cot = torch.randn((*grid.shape[:3], 3), generator=gen, device=dev)
+    cot[:, 1:15, 1:15] *= small  # inside the first tile, beside cotangents of about 1
+    top = cot[:, :16, :16].abs().amax().item()
+    # the plain version in f64: what every cell should be
+    img64, cot64 = images.double().requires_grad_(), cot.double()
+    (want,) = torch.autograd.grad(bilinear_sample(img64, grid.double()), img64, cot64)
+    quiet = (slice(None), slice(4, 12), slice(4, 12))
+    assert want[quiet].abs().max().item() < 10 * small
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    staged, _, _ = _launch_bwd(images, grid, cot, direct_blocks=count)
+    direct, _, _ = _launch_bwd(images, grid, cot, footprint_floats=0)
+    assert count.item() == 0
+    torch.testing.assert_close(direct[quiet].double(), want[quiet], rtol=0,
+                               atol=1e-4 * want[quiet].abs().max().item())
+    # a sixth of a pixel from the identity: the 3 x 3 pixels around a cell reach
+    # it, each with at most one product a channel; 16 is generous
+    torch.testing.assert_close(staged[quiet].double(), want[quiet], rtol=0, atol=16 * 2.0**-22 * top)
+    torch.testing.assert_close(staged, direct, rtol=0, atol=2e-5 * direct.abs().max().item())
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_warp_backward_passes_a_non_finite_cotangent_on(dev, bad):
+    """A tile that holds one takes the direct path: f32 adds carry it."""
+    from imm_tpu_torch.ops.warp import _launch_bwd
+
+    images, grid = _warp_inputs(dev, "border_ties")
+    cot = torch.ones((*grid.shape[:3], 3), device=dev)
+    cot[1, 20, 30, 2] = bad
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    d_images, _, _ = _launch_bwd(images, grid.contiguous(), cot, direct_blocks=count)
+    assert count.item() == 1
+    assert not torch.isfinite(d_images[1, 20, 30, 2])
+    assert torch.isfinite(d_images[0]).all() and torch.isfinite(d_images[1, :16]).all()
+
+
+@pytest.mark.parametrize("case", ["smooth", "zoom_in_4x"])
+def test_warp_backward_bf16_through_shared_memory(dev, case):
+    """bf16 images and cotangents against the plain version in f32 on the same
+    (bf16-rounded) values: d_grid is f32 either way; d_images comes back
+    rounded to bf16 once (2^-8 of the largest entry)."""
+    images, grid = _warp_inputs(dev, case)
+    img16 = images.bfloat16().requires_grad_()
+    img32 = images.bfloat16().float().requires_grad_()
+    g16, g32 = grid.clone().requires_grad_(), grid.clone().requires_grad_()
+    out_k, out_r = warp_bilinear(img16, g16), bilinear_sample(img32, g32)
+    cot = torch.randn(out_r.shape, generator=torch.Generator(dev).manual_seed(8), device=dev).bfloat16()
+    di_k, dg_k = torch.autograd.grad(out_k, (img16, g16), cot)
+    di_r, dg_r = torch.autograd.grad(out_r, (img32, g32), cot.float())
+    assert di_k.dtype == torch.bfloat16 and dg_k.dtype == torch.float32
+    torch.testing.assert_close(di_k.float(), di_r, rtol=0, atol=2.0**-8 * max(1.0, di_r.abs().max().item()))
+    torch.testing.assert_close(dg_k, dg_r, rtol=0, atol=2e-5 * max(1.0, dg_r.abs().max().item()))
 
 
 def test_warp_image_gradients_through_the_kernels(dev):

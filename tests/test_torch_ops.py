@@ -64,7 +64,11 @@ def test_render_gaussian_maps_rejects_bad_input():
 
 @pytest.mark.parametrize(
     "shape,out_hw,temperature",
-    [((5, 16, 16, 10), (16, 16), 1.0), ((5, 16, 16, 10), (32, 32), 0.5), ((3, 8, 8, 4), (8, 12), 1.0)],
+    [
+        ((5, 16, 16, 10), (16, 16), 1.0), ((5, 16, 16, 10), (32, 32), 0.5), ((3, 8, 8, 4), (8, 12), 1.0),
+        # the other presets' K, and the 8 x 8 map of 64 px images
+        ((2, 16, 16, 16), (16, 16), 1.0), ((2, 16, 16, 20), (16, 16), 1.0), ((4, 8, 8, 10), (8, 8), 1.0),
+    ],
 )
 def test_bottleneck_matches_jax_pallas_and_xla(shape, out_hw, temperature):
     hm = _heatmaps(shape, seed=3)
@@ -80,7 +84,11 @@ def test_bottleneck_matches_jax_pallas_and_xla(shape, out_hw, temperature):
 
 
 @pytest.mark.parametrize("use_maps", [True, False], ids=["coords_and_maps", "dmaps_unused"])
-@pytest.mark.parametrize("shape,out_hw", [((2, 8, 8, 4), (8, 8)), ((3, 8, 6, 5), (12, 16))])
+@pytest.mark.parametrize(
+    "shape,out_hw",
+    [((2, 8, 8, 4), (8, 8)), ((3, 8, 6, 5), (12, 16)),
+     ((2, 16, 16, 16), (16, 16)), ((2, 16, 16, 20), (16, 16)), ((4, 8, 8, 10), (8, 8))],
+)
 def test_bottleneck_gradient_matches_jax_pallas_backward(use_maps, shape, out_hw):
     """The gradient to the heatmaps against ``_bottleneck_pallas``'s backward
     kernel in interpret mode, with the loss of ``tests/test_fused.py`` (atol

@@ -164,6 +164,37 @@ def test_every_kernel_is_registered_with_its_source():
             assert banned not in text.lower(), (name, banned)
 
 
+def test_wrappers_agree_with_their_sources_on_tile_and_shared_memory():
+    """What the Python side must know of a kernel's layout, read off the source."""
+    import re
+
+    from imm_tpu_torch.ops import _build, fused, warp
+
+    text = (_build.CSRC / "warp_bwd.cu").read_text()
+    tile_w, tile_h = re.search(r"constexpr int kTileW = (\d+), kTileH = (\d+);", text).groups()
+    tile = (int(tile_h), int(tile_w))
+    assert tile == warp.BWD_TILE
+    assert "#if" not in text  # one kernel, no build-time variants
+    # two 4-byte arrays of the footprint and the tile's cotangents, under 48 KB
+    assert 4 * (2 * warp.BWD_FOOTPRINT_FLOATS + tile[0] * tile[1] * 3) <= 48 * 1024
+    text = (_build.CSRC / "bottleneck_bwd.cu").read_text()
+    assert "(H * (W | 1)) | 1" in text and "(OH * OW) | 1" in text  # as fused._launch_bwd sizes it
+    with pytest.raises(ValueError, match="shared memory"):
+        fused._launch_bwd(torch.zeros(1, 128, 128, 4), None, None, (16, 16), 10.0, 1.0)
+    # what the warp backward's launch refuses before it touches a pointer
+    img, grid, cot = torch.zeros(1, 8, 8, 3), torch.zeros(1, 8, 8, 2), torch.zeros(1, 8, 8, 3)
+    with pytest.raises(ValueError, match="cotangent"):
+        warp._launch_bwd(img, grid, cot.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        warp._launch_bwd(img, grid.transpose(1, 2), cot)
+    with pytest.raises(ValueError, match="footprint_floats"):
+        warp._launch_bwd(img, grid, cot, footprint_floats=-1)
+    with pytest.raises(ValueError, match="direct_blocks"):
+        warp._launch_bwd(img, grid, cot, direct_blocks=torch.zeros(1))
+    with pytest.raises(ValueError, match="shared memory"):
+        warp._launch_bwd(img, grid, cot, footprint_floats=40_000)
+
+
 def test_build_lives_in_an_ignored_directory():
     from imm_tpu_torch.ops import _build
 

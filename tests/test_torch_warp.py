@@ -47,12 +47,31 @@ def _nonsquare_case():
     return images, grid.astype(np.float32)
 
 
+def _zoom_in_case():
+    """Four output pixels a side on each source pixel: every cell of the
+    backward's scatter is hit many times."""
+    images, _ = _case(seed=13)
+    grid = np.repeat(np.asarray(jax_image.normalized_grid(16, 16))[None], 2, axis=0) * 0.25 + 0.1
+    return images, grid.astype(np.float32)
+
+
+def _zoom_out_case():
+    """Output pixels four source pixels apart: one tile's footprint is the
+    whole image."""
+    images, _ = _case(seed=14)
+    grid = np.repeat(np.asarray(jax_image.normalized_grid(4, 4))[None], 2, axis=0) * 0.98
+    return images, grid.astype(np.float32)
+
+
 CASES = {
     "random": lambda: _case(),
     "partly_off_image": lambda: _case(seed=3, scale=0.4),
     "far_out_of_range": lambda: _case(seed=1, b=1, scale=0.8),
     "border_ties": _identity_case,
     "nonsquare_output": _nonsquare_case,
+    "zoom_in_4x": _zoom_in_case,
+    "zoom_out_4x": _zoom_out_case,
+    "ragged_output": lambda: _case(seed=15, scale=0.02, out_hw=(10, 14)),
 }
 
 
