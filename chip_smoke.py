@@ -19,11 +19,11 @@ B=128) through their entry points:
 
 It checks the launch counts and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
-dependent steps; the warp's backward also with every block on its direct
-path), and prints one JSON line per phase. The last two lines are the ``kernels``
-summary and ``{"ok": true, "device": {...}}``. Any failure raises and exits
-non-zero; without CUDA it exits non-zero before any result. It imports
-nothing of JAX.
+dependent steps, and at K=30; the warp's backward also with every block on
+its direct path), and prints one JSON line per phase. The last two lines are
+the ``kernels`` summary and ``{"ok": true, "device": {...}}``. Any failure
+raises and exits non-zero; without CUDA it exits non-zero before any result.
+It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -156,9 +156,14 @@ def profiled_device_ms(fn, calls: int = 50, only: str | None = None) -> float:
     them."""
     fn()
     torch.cuda.synchronize()
-    rows, _ = profiled_kernels(fn, calls)
-    if only is not None:
-        rows = [r for r in rows if only in r[0]]
+    # Now and then the tracer hands back a window without its device records
+    # (seen once in several hundred windows on an H100): such a window is taken again.
+    for _ in range(3):
+        rows, _ = profiled_kernels(fn, calls)
+        if only is not None:
+            rows = [r for r in rows if only in r[0]]
+        if rows:
+            break
     check(bool(rows), f"the profiler saw no GPU kernel{f' named {only}' if only else ''}")
     return sum(us for _, _, us in rows) / calls / 1e3
 
@@ -284,7 +289,11 @@ def kernel_checks(dev) -> dict[str, float]:
         ((4, 16, 16, 16), (16, 16), 1.0),  # K of the 16-landmark presets
         ((4, 16, 16, 20), (16, 16), 1.0),  # K of the 20-landmark presets
         ((4, 8, 8, 10), (8, 8), 1.0),  # 64 px images: an 8 x 8 map
-        ((2, 32, 32, 10), (32, 32), 1.0),  # 256 px images: the backward's strided route
+        ((2, 32, 32, 10), (32, 32), 1.0),  # 256 px images: the strided route of both
+        ((2, 16, 16, 40), (16, 16), 1.0),  # more landmarks than a block has warps
+        ((2, 8, 16, 10), (8, 16), 1.0),  # H != W: the half-warps differ in their lanes at work
+        ((3, 15, 15, 5), (17, 17), 1.0),  # no 16-byte groups: the 4-byte route
+        ((2, 16, 16, 10), (7, 9), 1.0),  # 16-byte groups in the heatmap, none in the maps
     ]
     for shape, out_hw, temp in cases:
         fields = dict(shape=list(shape), out_hw=list(out_hw), temperature=temp)
@@ -683,6 +692,10 @@ def timing_phases(dev, smi, serving, exp):
         smallest_ms = profiled_device_ms(one.zero_)
         extra = {"bottleneck_fwd": {"smallest_kernel_ms": smallest_ms, "ms_b1": profiled_device_ms(
             lambda: landmark_bottleneck(hm1, out_hw, 10.0, impl="pallas"), only="bottleneck_fwd_kernel")}}
+        # the presets' largest K: 30 warps a block
+        hm30 = torch.randn((BATCH, 16, 16, 30), generator=gen, device=dev) * 3.0
+        extra["bottleneck_fwd"]["ms_k30"] = profiled_device_ms(
+            lambda: landmark_bottleneck(hm30, out_hw, 10.0, impl="pallas"), only="bottleneck_fwd_kernel")
         c_r, m_r = _bottleneck_reference(hm, out_hw, 10.0, 1.0, "rot")
         dc = torch.randn(c_r.shape, generator=gen, device=dev)
         dm = torch.randn(m_r.shape, generator=gen, device=dev)
@@ -690,8 +703,6 @@ def timing_phases(dev, smi, serving, exp):
         dc1, dm1 = dc[:1].clone(), dm[:1].clone()
         extra["bottleneck_bwd"] = {"smallest_kernel_ms": smallest_ms, "ms_b1": profiled_device_ms(
             lambda: fused._launch_bwd(hm1, dc1, dm1, out_hw, 10.0, 1.0), only="bottleneck_bwd_kernel")}
-        # the presets' largest K: 30 warps a block
-        hm30 = torch.randn((BATCH, 16, 16, 30), generator=gen, device=dev) * 3.0
         dc30 = torch.randn((BATCH, 30, 2), generator=gen, device=dev)
         dm30 = torch.randn(hm30.shape, generator=gen, device=dev)
         extra["bottleneck_bwd"]["ms_k30"] = profiled_device_ms(

@@ -34,6 +34,7 @@ from imm_tpu_torch.models.vgg import (
     random_vgg16_params,
 )
 from imm_tpu_torch.utils.config import PerceptualLossConfig
+from imm_tpu_torch.utils.device import get_device
 
 
 def resolve_source(config: PerceptualLossConfig) -> tuple[str, str | None]:
@@ -69,7 +70,8 @@ class ReconstructionLoss:
 
     ``vgg_params`` overrides the parameters the source would load or draw (a
     ``{name: {"kernel", "bias"}}`` tree): the way to hand this package the
-    random features that the JAX package drew.
+    random features that the JAX package drew. ``device=None`` means the GPU
+    and raises without one; pass ``device="cpu"`` to run on the CPU.
     """
 
     def __init__(
@@ -81,7 +83,7 @@ class ReconstructionLoss:
         self.config = config
         source, path = resolve_source(config)
         self.source = source
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = get_device(device)
         if source in ("vgg", "trained", "random_vgg"):
             if vgg_params is None:
                 vgg_params = (

@@ -6,12 +6,12 @@ function:
 - the plain PyTorch version, ``_bottleneck_reference``: ``ops.coords`` then
   ``ops.gauss`` (any render mode, any device), differentiated by autograd;
 - two CUDA kernels written by hand for Hopper behind one
-  ``torch.autograd.Function``: the forward ``csrc/bottleneck_fwd.cu`` reads
-  each heatmap from device memory once and writes coords and the 'rot' maps in
-  one launch; the backward ``csrc/bottleneck_bwd.cu`` keeps the heatmaps alone
-  as its residual, recomputes the softmaxes, coords and maps in shared memory,
-  one warp to a landmark and all landmarks at once, and writes d(heatmaps) in
-  one launch.
+  ``torch.autograd.Function``, both one block to an image, one warp to a
+  landmark and all landmarks at once: the forward ``csrc/bottleneck_fwd.cu``
+  reads each heatmap from device memory once and writes coords and the 'rot'
+  maps in one launch; the backward ``csrc/bottleneck_bwd.cu`` keeps the
+  heatmaps alone as its residual, recomputes the softmaxes, coords and maps
+  in shared memory and writes d(heatmaps) in one launch.
 
 ``impl='auto'`` takes the kernels for a CUDA tensor in mode 'rot' and the
 plain version for a CPU tensor or another mode. ``impl='pallas'`` (the JAX
@@ -45,7 +45,9 @@ def _check_smem(shape, nbytes: int) -> None:
 def _launch_fwd(heatmaps, out_hw, inv_std, temperature):
     b, h, w, k = heatmaps.shape
     oh, ow = out_hw
-    _check_smem(heatmaps.shape, 4 * (h * w * k + (h + w) * k + 2 * k))
+    # per landmark: a plane with odd pitches, the render's row and column factors
+    # and the strided route's marginals, as csrc/bottleneck_fwd.cu lays them out
+    _check_smem(heatmaps.shape, 4 * k * (((h * (w | 1)) | 1) + oh + ow + h + w))
     coords = torch.empty((b, k, 2), dtype=torch.float32, device=heatmaps.device)
     maps = torch.empty((b, oh, ow, k), dtype=torch.float32, device=heatmaps.device)
     if b == 0 or k == 0:

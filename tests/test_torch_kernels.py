@@ -33,15 +33,25 @@ def dev():
     return torch.device("cuda")
 
 
+BOTTLENECK_CASES = [
+    ((128, 16, 16, 10), (16, 16), 1.0),  # the presets' shape
+    ((5, 16, 16, 30), (16, 16), 1.0),  # odd batch, the largest K
+    ((3, 16, 16, 16), (32, 32), 0.5),  # out_hw != hw
+    ((2, 8, 12, 20), (12, 8), 2.0),  # non-square
+    ((2, 40, 40, 10), (40, 40), 1.0),  # above 48 KB of shared memory, the strided route
+    ((4, 16, 16, 16), (16, 16), 1.0),  # K of the 16-landmark presets
+    ((4, 16, 16, 20), (16, 16), 1.0),  # K of the 20-landmark presets
+    ((4, 8, 8, 10), (8, 8), 1.0),  # 64 px images: half of each half-warp idle
+    ((2, 16, 16, 40), (16, 16), 1.0),  # more landmarks than a block has warps
+    ((3, 5, 7, 3), (6, 9), 1.0),  # sizes that rule out 16-byte loads
+    ((2, 16, 16, 10), (7, 9), 1.0),  # 16-byte groups in the heatmap, none in the maps
+    ((3, 15, 15, 5), (17, 17), 1.0),  # odd sizes, an output wider than a half-warp
+]
+
+
 @pytest.mark.parametrize(
     "shape,out_hw,temperature",
-    [
-        ((128, 16, 16, 10), (16, 16), 1.0),  # the swap preset
-        ((5, 16, 16, 30), (16, 16), 1.0),  # odd batch, the largest K
-        ((3, 16, 16, 16), (32, 32), 0.5),  # out_hw != hw
-        ((2, 8, 12, 20), (12, 8), 2.0),  # non-square
-        ((2, 48, 48, 10), (48, 48), 1.0),  # above 48 KB of shared memory
-    ],
+    [*BOTTLENECK_CASES, ((2, 48, 48, 10), (48, 48), 1.0)],  # and 100 KB of shared memory
 )
 def test_bottleneck_kernel_matches_plain(dev, shape, out_hw, temperature):
     hm = torch.randn(shape, generator=torch.Generator(dev).manual_seed(0), device=dev) * 3.0
@@ -65,20 +75,6 @@ def test_bottleneck_kernel_refuses_what_it_cannot_take(dev):
     # a tensor that requires grad is taken now: the backward is a kernel too
     c, _ = landmark_bottleneck(hm.requires_grad_(), (16, 16), 10.0, impl="pallas")
     assert c.requires_grad
-
-
-BOTTLENECK_CASES = [
-    ((128, 16, 16, 10), (16, 16), 1.0),  # the presets' shape
-    ((5, 16, 16, 30), (16, 16), 1.0),  # odd batch, the largest K
-    ((3, 16, 16, 16), (32, 32), 0.5),  # out_hw != hw
-    ((2, 8, 12, 20), (12, 8), 2.0),  # non-square
-    ((2, 40, 40, 10), (40, 40), 1.0),  # above 48 KB of shared memory, the strided route
-    ((4, 16, 16, 16), (16, 16), 1.0),  # K of the 16-landmark presets
-    ((4, 16, 16, 20), (16, 16), 1.0),  # K of the 20-landmark presets
-    ((4, 8, 8, 10), (8, 8), 1.0),  # 64 px images: half of each half-warp idle
-    ((2, 16, 16, 40), (16, 16), 1.0),  # more landmarks than a block has warps
-    ((3, 5, 7, 3), (6, 9), 1.0),  # sizes that rule out 16-byte loads
-]
 
 
 @pytest.mark.parametrize("cotangents", ["both", "coords_only", "maps_only"])
@@ -362,11 +358,12 @@ def test_training_step_paths_agree_on_the_card(dev):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5, msg=name)
 
 
-def test_model_paths_agree_on_the_card(dev):
+@pytest.mark.parametrize("n_landmarks", [5, 30])
+def test_model_paths_agree_on_the_card(dev, n_landmarks):
     from imm_tpu_torch.eval.export import landmark_fn
     from imm_tpu_torch.models.imm import IMM, IMMConfig, init_model
 
-    cfg = IMMConfig(n_landmarks=5, image_size=32, filters=(8, 8, 16, 16), strides=(1, 2, 1, 2),
+    cfg = IMMConfig(n_landmarks=n_landmarks, image_size=32, filters=(8, 8, 16, 16), strides=(1, 2, 1, 2),
                     decoder_filters=(16, 8, 8))
     model = init_model(cfg, seed=0, device=dev)
     plain = IMM(dataclasses.replace(cfg, bottleneck_impl="xla")).to(dev)

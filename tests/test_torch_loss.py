@@ -177,7 +177,7 @@ def test_find_vgg16_weights(monkeypatch, tmp_path):
 def _losses(fields, random_params):
     jloss = JaxLoss(JaxLossConfig(**fields))
     override = vgg_from_flax(random_params) if fields["feature_source"] == "random_vgg" else None
-    return ReconstructionLoss(PerceptualLossConfig(**fields), vgg_params=override), jloss
+    return ReconstructionLoss(PerceptualLossConfig(**fields), device="cpu", vgg_params=override), jloss
 
 
 @pytest.mark.parametrize(
@@ -228,17 +228,17 @@ def test_reconstruction_loss_matches_jax_at_step_0_and_1(in_root, random_params,
 
 def test_reconstruction_loss_rejects_bad_configs(random_params):
     with pytest.raises(ValueError, match="loss weights"):
-        ReconstructionLoss(PerceptualLossConfig(feature_source="pixel", weights=(1.0,)))
+        ReconstructionLoss(PerceptualLossConfig(feature_source="pixel", weights=(1.0,)), device="cpu")
     with pytest.raises(ValueError, match="power of two"):
-        ReconstructionLoss(PerceptualLossConfig(feature_source="pixel", input_scale=3))
+        ReconstructionLoss(PerceptualLossConfig(feature_source="pixel", input_scale=3), device="cpu")
     with pytest.raises(ValueError, match="no VGG"):
-        ReconstructionLoss(PerceptualLossConfig(feature_source="pixel", input_scale=2))
+        ReconstructionLoss(PerceptualLossConfig(feature_source="pixel", input_scale=2), device="cpu")
     with pytest.raises(ValueError, match="unknown feature source"):
-        ReconstructionLoss(PerceptualLossConfig(feature_source="resnet"))
-    own = ReconstructionLoss(PerceptualLossConfig(feature_source="random_vgg", vgg_seed=3))
+        ReconstructionLoss(PerceptualLossConfig(feature_source="resnet"), device="cpu")
+    own = ReconstructionLoss(PerceptualLossConfig(feature_source="random_vgg", vgg_seed=3), device="cpu")
     again = vgg.random_vgg16_params(3)
     np.testing.assert_array_equal(
         n(own.vgg.convs["conv2_2"].weight), again["conv2_2"]["kernel"].transpose(3, 2, 0, 1)
     )
     cfg = dataclasses.replace(PerceptualLossConfig(feature_source="random_vgg"), compute_dtype="bfloat16")
-    assert ReconstructionLoss(cfg, vgg_params=vgg_from_flax(random_params)).vgg.compute_dtype == torch.bfloat16
+    assert ReconstructionLoss(cfg, device="cpu", vgg_params=vgg_from_flax(random_params)).vgg.compute_dtype == torch.bfloat16

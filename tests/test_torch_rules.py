@@ -55,7 +55,9 @@ def test_port_sources_import_no_jax(path):
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
+    from imm_tpu_torch.losses.perceptual import ReconstructionLoss
     from imm_tpu_torch.models.imm import IMMConfig, init_model
+    from imm_tpu_torch.utils.config import PerceptualLossConfig
     from imm_tpu_torch.utils.device import get_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -66,6 +68,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_model(IMMConfig(n_landmarks=2, image_size=16, filters=(4, 4), strides=(1, 2),
                              decoder_filters=(4, 4)))
+    pixel = PerceptualLossConfig(feature_source="pixel")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReconstructionLoss(pixel)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ReconstructionLoss(PerceptualLossConfig(feature_source="random_vgg"), device="cuda")
+    on_cpu = ReconstructionLoss(pixel, device="cpu")
+    assert on_cpu.device == on_cpu.weights.device == on_cpu.init_ema().device == torch.device("cpu")
     assert get_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         get_device("meta")
@@ -164,7 +173,7 @@ def test_every_kernel_is_registered_with_its_source():
             assert banned not in text.lower(), (name, banned)
 
 
-def test_wrappers_agree_with_their_sources_on_tile_and_shared_memory():
+def test_wrappers_agree_with_their_sources_on_tile_and_shared_memory(monkeypatch):
     """What the Python side must know of a kernel's layout, read off the source."""
     import re
 
@@ -181,6 +190,23 @@ def test_wrappers_agree_with_their_sources_on_tile_and_shared_memory():
     assert "(H * (W | 1)) | 1" in text and "(OH * OW) | 1" in text  # as fused._launch_bwd sizes it
     with pytest.raises(ValueError, match="shared memory"):
         fused._launch_bwd(torch.zeros(1, 128, 128, 4), None, None, (16, 16), 10.0, 1.0)
+    # the forward: the same plane, the render's factors and the strided route's marginals
+    text = (_build.CSRC / "bottleneck_fwd.cu").read_text()
+    assert "(H * (W | 1)) | 1" in text and "K * (plane + OH + OW + H + W)" in text
+    assert "#if" not in text
+    sized = []
+    monkeypatch.setattr(fused, "_check_smem", lambda shape, nbytes: sized.append(nbytes))
+    monkeypatch.setattr(fused._build, "load", lambda name: pytest.fail("reached the kernel"))
+    fused._launch_fwd(torch.zeros(0, 16, 16, 10), (16, 16), 10.0, 1.0)
+    fused._launch_fwd(torch.zeros(0, 5, 7, 3), (6, 9), 10.0, 1.0)
+    assert sized == [4 * 10 * (273 + 16 + 16 + 16 + 16), 4 * 3 * (35 + 6 + 9 + 5 + 7)]
+    monkeypatch.undo()
+    # an oversize map is refused before a pointer is touched: by the input's
+    # size, and by the output's
+    with pytest.raises(ValueError, match="shared memory"):
+        fused._launch_fwd(torch.zeros(1, 128, 128, 4), (16, 16), 10.0, 1.0)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused._launch_fwd(torch.zeros(1, 16, 16, 10), (4000, 4000), 10.0, 1.0)
     # what the warp backward's launch refuses before it touches a pointer
     img, grid, cot = torch.zeros(1, 8, 8, 3), torch.zeros(1, 8, 8, 2), torch.zeros(1, 8, 8, 3)
     with pytest.raises(ValueError, match="cotangent"):

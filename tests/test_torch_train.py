@@ -199,10 +199,11 @@ def _setup(kind, loss_source, nan_guard=False, ema_decay=0.9):
     if loss_source == "random_vgg":
         lcfg = dict(feature_source="random_vgg", compute_dtype="float32", input_scale=2)
         jloss = JaxLoss(JaxLossConfig(**lcfg))
-        loss = ReconstructionLoss(PerceptualLossConfig(**lcfg), vgg_params=vgg_from_flax(jloss.vgg_params))
+        loss = ReconstructionLoss(PerceptualLossConfig(**lcfg), device="cpu",
+                                  vgg_params=vgg_from_flax(jloss.vgg_params))
     else:
         lcfg = dict(feature_source="pixel", weights=(1.0, 0.5, 2.0))
-        jloss, loss = JaxLoss(JaxLossConfig(**lcfg)), ReconstructionLoss(PerceptualLossConfig(**lcfg))
+        jloss, loss = JaxLoss(JaxLossConfig(**lcfg)), ReconstructionLoss(PerceptualLossConfig(**lcfg), device="cpu")
     jopt = jax_state.make_optimizer(jax_state.TrainConfig(**fields))
     opt = make_optimizer(TrainConfig(**fields))
     jparams = jax.tree_util.tree_map(jnp.asarray, variables["params"])
@@ -390,7 +391,7 @@ def test_make_train_step_host_fed_windows(pair_mode):
 
     cfg = _tiny_experiment(equi_weight=1.0, sep_weight=0.1, ent_weight=0.03,
                            skip_nonfinite_updates=True, param_ema_decay=0.9)
-    loss = ReconstructionLoss(cfg.loss)
+    loss = ReconstructionLoss(cfg.loss, device="cpu")
     model, state = create_train_state(0, cfg.model, cfg.train, loss.n_terms, device="cpu")
     pair = PairSynthesizer(PairConfig(enable_warp=pair_mode == "tps"))
     step = steps.make_train_step(model, loss, cfg.train, pair, pair_mode, scan_steps=3)
