@@ -15,7 +15,13 @@ B=128) through their entry points:
   against the plain path, and ``cli.train``;
 - the warp's gradient (``warp_image`` differentiated in the images and the
   warp parameters), the path of the warp's backward kernel, which training
-  does not take.
+  does not take;
+- after the timing phases, a training run that lasts (``synthetic_best``
+  with a workdir): a save timed beside the steps around it, a restore onto
+  the card and onto the CPU held bit for bit to the saved state, steps after
+  the resume, and ``cli.eval`` and ``cli.generate`` (PNG) from the workdir;
+  then ``cli.train --supervise``, whose child is killed after it resumed and
+  is started again by the supervisor, resumes again and finishes.
 
 It checks the launch counts and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
@@ -28,13 +34,19 @@ It imports nothing of JAX.
 
 from __future__ import annotations
 
+import ast
 import copy
 import dataclasses
 import json
 import math
+import os
+import re
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -53,6 +65,11 @@ TOL_WARP_BF16 = 2.0**-6
 TOL_GRAD_REL = 2e-5
 SMOKE_STEPS_PER_CALL = 5  # the preset's 40, cut for the smoke
 SMOKE_CALLS = 3
+CKPT_STEPS, CKPT_EVERY = 16, 8  # one step a call: a save after the 8th and the 16th
+# --supervise: a first run to SUPERVISE_FROM, then a supervised run to
+# SUPERVISE_TO whose child is killed once it logs step 50 (the trainer's
+# log_every) after its resume
+SUPERVISE_FROM, SUPERVISE_KILL_AT, SUPERVISE_TO = 10, 50, 60
 PHASE_SECONDS: dict[str, float] = {}
 
 
@@ -156,16 +173,19 @@ def profiled_device_ms(fn, calls: int = 50, only: str | None = None) -> float:
     them."""
     fn()
     torch.cuda.synchronize()
-    # Now and then the tracer hands back a window without its device records
-    # (seen once in several hundred windows on an H100): such a window is taken again.
+    # Now and then the tracer hands back a window without some or all of its
+    # device records (seen a few times in several hundred windows on an H100):
+    # such a window is taken again. ``only`` names a kernel each call launches
+    # once, so its time is averaged over the launches the window recorded.
     for _ in range(3):
         rows, _ = profiled_kernels(fn, calls)
         if only is not None:
             rows = [r for r in rows if only in r[0]]
-        if rows:
+        recorded = sum(count for _, count, _ in rows)
+        if rows and (only is None or recorded == calls):
             break
     check(bool(rows), f"the profiler saw no GPU kernel{f' named {only}' if only else ''}")
-    return sum(us for _, _, us in rows) / calls / 1e3
+    return sum(us for _, _, us in rows) / (calls if only is None else recorded) / 1e3
 
 
 def bound(nbytes: float, ops: float) -> tuple[float, str]:
@@ -571,6 +591,204 @@ def training_slice(dev):
     return exp, launches
 
 
+def png_size(path: Path) -> tuple[int, int]:
+    """(height, width) from a PNG's header."""
+    head = path.read_bytes()[:24]
+    check(head[:8] == b"\x89PNG\r\n\x1a\n" and head[12:16] == b"IHDR", f"{path} is not a PNG")
+    return int.from_bytes(head[20:24], "big"), int.from_bytes(head[16:20], "big")
+
+
+def run_cli(module: str, *args: str, timeout: int = 600) -> subprocess.CompletedProcess:
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT, capture_output=True,
+                          text=True, timeout=timeout)
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return proc
+
+
+def checkpoint_slice(dev):
+    """``synthetic_best`` at B=128 with a workdir: save, restore on the card
+    and on the CPU bit for bit, steps after the resume, ``cli.eval`` and
+    ``cli.generate`` from the workdir; -> the kernels' launches after the
+    resume."""
+    from imm_tpu_torch.experiment import build_experiment
+    from imm_tpu_torch.train.loop import CHECKPOINT_FILE, checkpoint_steps
+    from imm_tpu_torch.train.state import flatten_state
+    from imm_tpu_torch.utils.profiling import throughput
+
+    workdir = ROOT / "build" / "smoke" / "checkpoint"
+    shutil.rmtree(workdir, ignore_errors=True)
+    ckpt_dir = workdir / "checkpoints"
+    cfg = dataclasses.replace(smoke_config(1), workdir=str(workdir))
+    exp = build_experiment(cfg, total_steps=CKPT_STEPS)
+    trainer = exp.trainer
+    trainer.options.checkpoint_every = CKPT_EVERY
+    # The wall time of each call of the trainer's loop, from the start of one
+    # call to the start of the next with the device idle at both ends; and
+    # of each save that writes a file.
+    starts, saves = [], {}
+    step_fn, save = trainer.step_fn, trainer.save
+
+    def stamped_step(state, gen):
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())
+        return step_fn(state, gen)
+
+    def timed_save(wait=False):
+        step = trainer.state.host_step
+        writes = not (ckpt_dir / str(step) / CHECKPOINT_FILE).exists()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save(wait)
+        if writes:
+            saves[step] = (time.perf_counter() - t0) * 1e3
+
+    trainer.step_fn, trainer.save = stamped_step, timed_save
+    state = exp.run()
+    torch.cuda.synchronize()
+    check(state.host_step == int(state.step) == CKPT_STEPS, f"steps taken: {state.host_step}")
+    check(checkpoint_steps(str(ckpt_dir)) == [CKPT_EVERY, CKPT_STEPS],
+          f"checkpoints: {checkpoint_steps(str(ckpt_dir))}")
+    check(sorted(saves) == [CKPT_EVERY, CKPT_STEPS], f"saves timed: {saves}")
+    calls = [(b - a) * 1e3 for a, b in zip(starts, starts[1:])]  # calls[i]: step i + 1
+    with_save = calls[CKPT_EVERY - 1]
+    without = [c for i, c in enumerate(calls) if i >= 2 and i != CKPT_EVERY - 1]  # 2 warm-up
+    size_mb = (ckpt_dir / str(CKPT_STEPS) / CHECKPOINT_FILE).stat().st_size / 1e6
+    saved = {k: v.clone() for k, v in flatten_state(state).items()}
+
+    # a fresh experiment on the workdir restores onto the card ...
+    exp2 = build_experiment(cfg, total_steps=CKPT_STEPS + 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = exp2.trainer.restore_or_init()
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    check(restored.host_step == int(restored.step) == CKPT_STEPS, f"restored {restored.host_step}")
+    flat = flatten_state(restored)
+    check(set(flat) == set(saved), "the restored state has other tensors")
+    differ = [k for k in saved if not (flat[k].dtype == saved[k].dtype and torch.equal(flat[k], saved[k]))]
+    check(not differ, f"restored tensors differ from the saved ones: {differ[:5]}")
+    check(all(v.device.type == "cuda" for v in flat.values()), "a tensor was restored off the card")
+    # ... and onto the CPU
+    exp_cpu = build_experiment(cfg, device="cpu", total_steps=0)
+    on_cpu = flatten_state(exp_cpu.trainer.restore_or_init())
+    check(set(on_cpu) == set(saved) and all(
+        v.device.type == "cpu" and torch.equal(v, saved[k].cpu()) for k, v in on_cpu.items()),
+        "the checkpoint loaded onto the CPU differs")
+    del exp_cpu
+
+    # the resumed run takes its steps through the kernels
+    reset_kernel_counts()
+    state2 = exp2.trainer.run()
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    check(state2.host_step == CKPT_STEPS + 1, f"resumed run stopped at {state2.host_step}")
+    want = {"bottleneck_fwd": 2, "bottleneck_bwd": 2, "warp_fwd": 2, "warp_bwd": 0}
+    check(launches == want, f"launches after the resume {launches}, expected {want}")
+    metrics = exp2.trainer.history[-1]
+    check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
+    check(checkpoint_steps(str(ckpt_dir)) == [CKPT_EVERY, CKPT_STEPS, CKPT_STEPS + 1],
+          f"checkpoints after the resume: {checkpoint_steps(str(ckpt_dir))}")
+    # the resumed state trains at the rate of the others (7 more steps, not saved)
+    resumed_images_per_s, _ = throughput(exp2.step_fn, state2, exp2.trainer.gen, BATCH, 1)
+    del exp, exp2
+
+    # the entry points a user runs on a workdir
+    proc = run_cli("imm_tpu_torch.cli.eval", "--preset", "synthetic_best", "--workdir", str(workdir),
+                   "eval_samples=256")
+    check(f"restored checkpoint at step {CKPT_STEPS + 1}" in proc.stderr, "cli.eval did not restore")
+    ev = ast.literal_eval(proc.stdout.strip().splitlines()[-1])
+    check(bool(ev) and all(math.isfinite(v) and v > 0 for v in ev.values()), f"cli.eval: {ev}")
+    png, n = workdir / "swaps.png", 8
+    proc = run_cli("imm_tpu_torch.cli.generate", "--preset", "synthetic_best", "--workdir",
+                   str(workdir), "--n", str(n), "--out", str(png))
+    check(f"restored checkpoint at step {CKPT_STEPS + 1}" in proc.stderr, "cli.generate did not restore")
+    size = cfg.model.image_size
+    check(png_size(png) == (3 * size, n * size), f"{png}: {png_size(png)}")
+    emit("checkpoint", preset="synthetic_best", batch=cfg.train.batch_size, steps=CKPT_STEPS,
+         checkpoint_every=CKPT_EVERY, save_ms={str(k): v for k, v in saves.items()},
+         checkpoint_mb=size_mb, tensors=len(saved),
+         step_ms_p50_without_save=statistics.median(without),
+         step_ms_range_without_save=[min(without), max(without)], step_ms_with_save=with_save,
+         restore_ms=restore_ms, restored_bit_exact=True, cpu_restore_bit_exact=True,
+         resumed_steps=1, launches_after_resume=launches,
+         resumed_images_per_s=resumed_images_per_s, cli_eval=ev,
+         cli_generate_png=list(png_size(png)))
+    return launches
+
+
+def child_pids(pid: int) -> list[int]:
+    """The processes whose parent is ``pid``, from ``/proc/*/stat``."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:  # the process ended meanwhile
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+def supervise_slice():
+    """``cli.train`` to ``SUPERVISE_FROM`` steps, then ``--supervise 1`` to
+    ``SUPERVISE_TO``: its child is killed once it has resumed and logged a
+    step; the supervisor starts it again, it resumes again and finishes."""
+    from imm_tpu_torch.train.loop import checkpoint_steps
+
+    workdir = ROOT / "build" / "smoke" / "supervise"
+    shutil.rmtree(workdir, ignore_errors=True)
+    common = ["--preset", "synthetic_best", "--workdir", str(workdir),
+              f"train.steps_per_call={SMOKE_STEPS_PER_CALL}", "eval_samples=256"]
+    t0 = time.perf_counter()
+    run_cli("imm_tpu_torch.cli.train", *common, "--steps", str(SUPERVISE_FROM))
+    first_s = time.perf_counter() - t0
+    check(checkpoint_steps(str(workdir / "checkpoints")) == [SUPERVISE_FROM], "first run saved nothing")
+
+    sup = subprocess.Popen(
+        [sys.executable, "-u", "-m", "imm_tpu_torch.cli.train", *common,
+         "--steps", str(SUPERVISE_TO), "--supervise", "1"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def stop_all():
+        for pid in child_pids(sup.pid):
+            os.kill(pid, signal.SIGKILL)
+        sup.kill()
+
+    deadline = threading.Timer(600, stop_all)  # the phase's limit: nothing outlives it
+    deadline.start()
+    lines, killed, restored = [], None, f"restored checkpoint at step {SUPERVISE_FROM}"
+    logged_step = re.compile(rf"imm_tpu_torch step {SUPERVISE_KILL_AT} ")
+    try:
+        for line in sup.stdout:
+            lines.append(line)
+            if killed is None and logged_step.search(line) and any(restored in ln for ln in lines):
+                children = child_pids(sup.pid)
+                check(len(children) == 1, f"the supervisor has children {children}")
+                os.kill(children[0], signal.SIGKILL)
+                killed = children[0]
+        code = sup.wait(timeout=60)
+    finally:
+        deadline.cancel()
+        if sup.poll() is None:
+            stop_all()
+    log_path = workdir / "supervise.log"
+    log_path.write_text("".join(lines))
+    text = "".join(lines)
+    tail = "".join(lines[-30:])
+    check(killed is not None, f"the child never logged step {SUPERVISE_KILL_AT} after its resume: {tail}")
+    check(f"training exited with code {-signal.SIGKILL}" in text, f"no relaunch after the kill: {tail}")
+    check(text.count(restored) == 2, f"'{restored}' {text.count(restored)} times: {tail}")
+    check(f"finished at step {SUPERVISE_TO}" in text and code == 0, f"exit {code}: {tail}")
+    check(checkpoint_steps(str(workdir / "checkpoints"))[-1] == SUPERVISE_TO, "no final checkpoint")
+    emit("supervise", first_run_steps=SUPERVISE_FROM, first_run_s=first_s, killed_child=killed,
+         killed_after_step=SUPERVISE_KILL_AT, relaunched=True, restored_step_both_children=SUPERVISE_FROM,
+         finished_step=SUPERVISE_TO, exit_code=code, log=str(log_path.relative_to(ROOT)),
+         seconds=time.perf_counter() - t0)
+
+
 def warp_grad_slice(dev):
     """K4's path: the gradient of sum(warp_image(images, params)^2) in the
     images, ``trans`` and ``cp_delta`` through the kernels against the plain
@@ -795,6 +1013,12 @@ def main() -> int:
     with timed("warp_grad_slice"):
         k4_launches = warp_grad_slice(dev)
     timings = timing_phases(dev, smi, serving, exp)
+    # The runs that last come after the timing phases, which so time a
+    # process in the state they found it in before these phases existed.
+    with timed("checkpoint"):
+        checkpoint_slice(dev)
+    with timed("supervise"):
+        supervise_slice()
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 3)
     emit("phase_seconds", **PHASE_SECONDS)
 

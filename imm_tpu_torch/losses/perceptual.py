@@ -60,6 +60,12 @@ def resolve_source(config: PerceptualLossConfig) -> tuple[str, str | None]:
     return config.feature_source, None
 
 
+def n_loss_terms(config: PerceptualLossConfig) -> int:
+    """How many terms (and EMA entries) the loss has, without loading its
+    features: the pixel term and one per VGG tap, or one per pixel scale."""
+    return config.pixel_scales if config.feature_source == "pixel" else 1 + len(config.taps)
+
+
 def _avg_pool2(x: torch.Tensor) -> torch.Tensor:
     """2x2 average pool of an NHWC tensor (odd trailing rows/cols dropped)."""
     return F.avg_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
@@ -92,12 +98,11 @@ class ReconstructionLoss:
                 )
             self.vgg = VGG16Features(config.taps, getattr(torch, config.compute_dtype))
             self.vgg.load_params(vgg_params).to(self.device)
-            self.n_terms = 1 + len(config.taps)
         elif source == "pixel":
             self.vgg = None
-            self.n_terms = config.pixel_scales
         else:
             raise ValueError(f"unknown feature source: {source!r}")
+        self.n_terms = n_loss_terms(config)
         if len(config.weights) < self.n_terms:
             raise ValueError(f"need {self.n_terms} loss weights, got {len(config.weights)}")
         if config.input_scale & (config.input_scale - 1) or config.input_scale < 1:

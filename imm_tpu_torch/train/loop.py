@@ -1,28 +1,49 @@
-"""Trainer shell: the step loop, metrics and throughput accounting. Mirrors
-``imm_tpu.train.loop.Trainer.run``.
+"""Trainer shell: the step loop, metrics, checkpoints, throughput accounting.
+Mirrors ``imm_tpu.train.loop``.
 
-A host loop drives the (possibly multi-step) step function to
-``total_steps``, reads the metrics back at the log cadence only, counts
-images per second, keeps a ``history`` of what it logged, and calls the eval
-function on its cadence.
+- A host loop drives the (possibly multi-step) step function to
+  ``total_steps``, reads the metrics back at the log cadence only, counts
+  images per second, keeps a ``history`` of what it logged, and calls the
+  eval function (and the image panel) on its cadence.
+- Checkpoints (``workdir``): the whole state (``train.state.flatten_state``)
+  saved with ``torch.save`` to ``<workdir>/checkpoints/<step>/state.pt``
+  every ``checkpoint_every`` steps and at the end of ``run()``, the newest
+  ``keep_checkpoints`` kept. A save writes a temporary file and renames it
+  over ``state.pt``, so a process killed in a save leaves the previous
+  checkpoints whole and no torn one that ``restore_or_init`` would take.
+  Crash recovery is "restart and resume from the latest", as in the JAX
+  package.
+- The stall watchdog (``stall_timeout_s``) aborts a wedged process so a
+  supervisor (``cli/train.py --supervise``) can restart it.
+- Metrics go to the log and, with ``tensorboard``, to
+  ``torch.utils.tensorboard`` when that is installed.
 
-Not ported yet (ROADMAP.md, Queue 1 item 8): checkpointing and resume, the
-stall watchdog, TensorBoard and the image panels. ``TrainerOptions`` keeps
-their fields so a config written for the JAX package still loads; a
-``workdir`` raises instead of training without the checkpoints it asks for.
+The random stream restarts from ``seed`` whenever a ``Trainer`` is built, as
+the JAX package's key does: a resumed run draws other batches than an
+uninterrupted one would have from the same step on. The generator is not
+part of a checkpoint.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import logging
+import os
+import shutil
+import threading
 import time
 from collections.abc import Callable, Iterator
 from typing import Any
 
+import numpy as np
 import torch
 
+from imm_tpu_torch.train.state import flatten_state, load_flat_state
+from imm_tpu_torch.utils.viz import to_uint8, write_png
+
 log = logging.getLogger("imm_tpu_torch")
+
+CHECKPOINT_FILE = "state.pt"
 
 
 @dataclasses.dataclass
@@ -32,7 +53,24 @@ class TrainerOptions:
     checkpoint_every: int = 1000
     keep_checkpoints: int = 3
     tensorboard: bool = False
-    stall_timeout_s: float = 0.0  # the watchdog is not ported: no effect yet
+    # Failure detection: a wedged device blocks the host loop inside a step
+    # with no signal. If no call of the step function returns within this
+    # many seconds, the watchdog aborts the process (exit code 42) so a
+    # supervisor can restart it; training resumes from the latest
+    # checkpoint. 0 disables.
+    stall_timeout_s: float = 0.0
+
+
+def checkpoint_steps(checkpoint_dir: str) -> list[int]:
+    """The steps of the complete checkpoints under ``checkpoint_dir``, in
+    order. A step directory without its ``state.pt`` (a save that was cut
+    short leaves only the temporary file) is not one."""
+    if not os.path.isdir(checkpoint_dir):
+        return []
+    return sorted(
+        int(d) for d in os.listdir(checkpoint_dir)
+        if d.isdigit() and os.path.isfile(os.path.join(checkpoint_dir, d, CHECKPOINT_FILE))
+    )
 
 
 class Trainer:
@@ -42,6 +80,8 @@ class Trainer:
     data, e.g. the synthetic harness) or ``(state, batch, gen) -> (state,
     metrics)`` with ``batches`` an iterator of dicts of tensors. ``gen`` is
     one ``torch.Generator`` on the state's device, seeded from ``seed``.
+    ``viz_fn(state)`` gives an (H, W, 3) panel in [0, 1], written after each
+    eval.
     """
 
     def __init__(
@@ -56,12 +96,8 @@ class Trainer:
         seed: int = 0,
         eval_fn: Callable[[Any], dict[str, float]] | None = None,
         eval_every: int = 0,
+        viz_fn: Callable[[Any], Any] | None = None,
     ):
-        if options.workdir:
-            raise NotImplementedError(
-                "workdir: checkpointing, TensorBoard and image panels are not "
-                "ported yet (ROADMAP.md, Queue 1 item 8); leave workdir empty"
-            )
         self.step_fn = step_fn
         self.state = state
         self.total_steps = total_steps
@@ -72,14 +108,157 @@ class Trainer:
         self.gen = torch.Generator(state.step.device).manual_seed(seed)
         self.eval_fn = eval_fn
         self.eval_every = eval_every
+        self.viz_fn = viz_fn
         self.history: list[dict[str, float]] = []
+        self._writer = None
+        self._checkpoint_dir = None
+        self._saved_step = None
+        self._last_progress = time.time()
+        self._watch_active = False  # armed only while run() executes
+        self._on_stall = None  # injectable for tests; default aborts
+        if options.workdir:
+            self._checkpoint_dir = os.path.join(os.path.abspath(options.workdir), "checkpoints")
+            os.makedirs(self._checkpoint_dir, exist_ok=True)
+            if options.tensorboard:
+                self._init_tensorboard()
+        if options.stall_timeout_s > 0:
+            self._start_watchdog()
+
+    # -- failure detection --------------------------------------------------
+
+    def _start_watchdog(self):
+        def watch():
+            timeout = self.options.stall_timeout_s
+            while True:
+                time.sleep(min(timeout / 4, 60.0))
+                # Watch only while the loop is live: the daemon thread
+                # outlives run(), and a finished Trainer's _last_progress
+                # goes stale; without this gate it would abort the process
+                # ~timeout seconds after a successful run.
+                if not self._watch_active:
+                    continue
+                idle = time.time() - self._last_progress
+                if idle > timeout:
+                    log.critical(
+                        "no training progress for %.0fs (stall timeout %.0fs)"
+                        " — aborting so a supervisor can restart; training"
+                        " resumes from the latest checkpoint", idle, timeout,
+                    )
+                    if self._on_stall is not None:
+                        self._on_stall()
+                        return
+                    os._exit(42)
+
+        threading.Thread(target=watch, daemon=True).start()
+
+    # -- checkpointing ------------------------------------------------------
+
+    def restore_or_init(self):
+        """Resume from the latest complete checkpoint if one exists, loaded
+        onto the state's device (a checkpoint written on the GPU loads on the
+        CPU and back) into the state's own tensors.
+
+        The checkpoint has one config-dependent optional part: ``ema_params``
+        (``TrainConfig.param_ema_decay > 0``). Restoring must not require the
+        user to replay that training-time override (``generate --ema``
+        against an EMA-trained workdir, or resuming after flipping the
+        lever), so it is reconciled against what is on disk in either
+        direction instead of raising.
+        """
+        steps = checkpoint_steps(self._checkpoint_dir) if self._checkpoint_dir else []
+        if not steps:
+            return self.state
+        latest = steps[-1]
+        path = os.path.join(self._checkpoint_dir, str(latest), CHECKPOINT_FILE)
+        flat = torch.load(path, map_location=self.state.step.device, weights_only=True)
+        state = self.state
+        on_disk = any(k.startswith("ema_params/") for k in flat)
+        seed_ema = False
+        if on_disk and state.ema_params is None:
+            # disk has EMA params, the live config does not: restore and keep
+            # them. With decay 0 the step carries them through unchanged, and
+            # generate --ema stays reachable.
+            state.ema_params = {k: torch.empty_like(p) for k, p in state.params.items()}
+            log.info("checkpoint carries EMA params; restored them "
+                     "(param_ema_decay=0: they stay frozen)")
+        elif not on_disk and state.ema_params is not None:
+            # disk has none, the live config wants them: the lever turns on
+            # mid-run, and the EMA starts from the restored params
+            state.ema_params, seed_ema = None, True
+        load_flat_state(state, flat)
+        if seed_ema:
+            state.ema_params = {k: p.detach().clone() for k, p in state.params.items()}
+            log.info("checkpoint has no EMA params; seeding EMA from the restored params")
+        self._saved_step = latest
+        log.info("restored checkpoint at step %d", latest)
+        return state
+
+    def save(self, wait: bool = False):
+        """Write the state's checkpoint at its step and drop all but the
+        newest ``keep_checkpoints``. The write is synchronous whatever
+        ``wait`` says (the argument keeps the JAX package's signature): it
+        returns once the file is in place. A step already saved is not
+        written again."""
+        if self._checkpoint_dir is None:
+            return
+        step = self.state.host_step
+        if step == self._saved_step:
+            return
+        step_dir = os.path.join(self._checkpoint_dir, str(step))
+        os.makedirs(step_dir, exist_ok=True)
+        tmp = os.path.join(step_dir, CHECKPOINT_FILE + ".tmp")
+        with open(tmp, "wb") as f:
+            torch.save(flatten_state(self.state), f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, os.path.join(step_dir, CHECKPOINT_FILE))
+        fd = os.open(step_dir, os.O_RDONLY)
+        try:
+            os.fsync(fd)  # the rename itself survives a crash of the host
+        finally:
+            os.close(fd)
+        self._saved_step = step
+        for old in checkpoint_steps(self._checkpoint_dir)[: -self.options.keep_checkpoints]:
+            shutil.rmtree(os.path.join(self._checkpoint_dir, str(old)))
+
+    # -- metrics ------------------------------------------------------------
+
+    def _init_tensorboard(self):
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+
+            self._writer = SummaryWriter(os.path.join(self.options.workdir, "tb"))
+        except ImportError as e:  # the tensorboard package is optional
+            log.warning("tensorboard writer unavailable: %s", e)
 
     def _log(self, step: int, metrics: dict[str, float]):
         self.history.append({"step": step, **metrics})
         parts = " ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items()))
         log.info("step %d %s", step, parts)
+        if self._writer is not None:
+            for k, v in metrics.items():
+                self._writer.add_scalar(k, v, step)
+
+    def write_image_summary(self, step: int, panel) -> None:
+        """Write an (H, W, 3) float panel (``utils.viz.training_summary_panel``)
+        to TensorBoard and as ``panel_{step:08d}.png`` to the workdir."""
+        panel = np.clip(np.asarray(panel, np.float32), 0.0, 1.0)
+        if self._writer is not None:
+            self._writer.add_image("train/panel", panel, step, dataformats="HWC")
+        if self.options.workdir:
+            write_png(os.path.join(self.options.workdir, f"panel_{step:08d}.png"), to_uint8(panel))
+
+    # -- the loop -----------------------------------------------------------
 
     def run(self):
+        self._last_progress = time.time()
+        self._watch_active = True
+        try:
+            return self._run()
+        finally:
+            self._watch_active = False
+
+    def _run(self):
         state = self.state
         t_window = time.time()
         images_in_window = 0
@@ -89,6 +268,10 @@ class Trainer:
                 state, metrics = self.step_fn(state, self.gen)
             else:
                 state, metrics = self.step_fn(state, next(self.batches), self.gen)
+            # feed the watchdog when the call returns: no device read per
+            # call. On the GPU the host blocks inside a call once the launch
+            # queue is full, so a wedged device stops these stamps.
+            self._last_progress = time.time()
             images_in_window += self.batch_size * self.steps_per_call
             self.state = state
             step = state.host_step  # the host's count: no device read per call
@@ -104,11 +287,23 @@ class Trainer:
                 images_in_window = 0
                 next_log = step + self.options.log_every
             if (
+                self._checkpoint_dir is not None
+                and step > 0
+                and step % self.options.checkpoint_every < self.steps_per_call
+            ):
+                self.save()
+            if (
                 self.eval_fn is not None
                 and self.eval_every > 0
                 and step % self.eval_every < self.steps_per_call
             ):
                 ev = self.eval_fn(state)
                 self._log(step, {f"eval/{k}": v for k, v in ev.items()})
+                if self.viz_fn is not None:
+                    self.write_image_summary(step, self.viz_fn(state))
         self.state = state
+        if self._checkpoint_dir is not None:
+            self.save(wait=True)
+        if self._writer is not None:
+            self._writer.flush()
         return state

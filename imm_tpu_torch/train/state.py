@@ -8,6 +8,11 @@ arithmetic (``make_optimizer``), not ``torch.optim``: a step must be able to
 skip its whole update on a device-side flag (the NaN guard) without a host
 sync, and the piecewise learning rate follows a count that lives on the
 device.
+
+A checkpoint is the state flattened to one dict of tensors
+(``flatten_state``), which ``torch.save`` writes and
+``torch.load(weights_only=True)`` reads; ``load_flat_state`` copies such a
+dict back into a live state's tensors.
 """
 
 from __future__ import annotations
@@ -142,3 +147,45 @@ def create_train_state(
         ),
     )
     return model, state
+
+
+def flatten_state(state: TrainState) -> Tensors:
+    """The whole state as one flat dict of tensors (no copies): ``step``,
+    ``loss_ema``, ``model/<name>`` for every parameter and BatchNorm
+    statistic, ``opt_state/count`` and ``opt_state/{mu,nu}/<name>``, and
+    ``ema_params/<name>`` when the state keeps a parameter EMA."""
+    flat = {"step": state.step, "loss_ema": state.loss_ema}
+    flat.update({f"model/{k}": v for k, v in state.model.state_dict().items()})
+    for key, value in state.opt_state.items():
+        if isinstance(value, dict):
+            flat.update({f"opt_state/{key}/{k}": v for k, v in value.items()})
+        else:
+            flat[f"opt_state/{key}"] = value
+    if state.ema_params is not None:
+        flat.update({f"ema_params/{k}": v for k, v in state.ema_params.items()})
+    return {k: v.detach() for k, v in flat.items()}
+
+
+def load_flat_state(state: TrainState, flat: Tensors) -> TrainState:
+    """Copy ``flat`` (as ``flatten_state`` gives it) into ``state``'s own
+    tensors in place, so the model and the step function that holds it train
+    the loaded values; set ``host_step`` from the loaded ``step``.
+
+    The keys must be those of ``flatten_state(state)``, and every tensor must
+    have its target's shape and dtype: a checkpoint of another model or
+    optimizer raises instead of loading in part."""
+    live = flatten_state(state)
+    if set(flat) != set(live):
+        missing, extra = sorted(set(live) - set(flat)), sorted(set(flat) - set(live))
+        raise KeyError(f"checkpoint does not fit the state: missing {missing[:5]}, "
+                       f"unexpected {extra[:5]}")
+    for k, target in live.items():
+        src = flat[k]
+        if src.shape != target.shape or src.dtype != target.dtype:
+            raise ValueError(f"checkpoint {k}: {tuple(src.shape)} {src.dtype}, "
+                             f"the state holds {tuple(target.shape)} {target.dtype}")
+    with torch.no_grad():
+        for k, target in live.items():
+            target.copy_(flat[k])
+    state.host_step = int(state.step)
+    return state

@@ -451,15 +451,30 @@ def test_trainer_log_and_eval_cadence():
     assert evals == [6, 12, 15, 21]  # step % 5 < 3, as the JAX trainer's cadence
     train_logs = [h["step"] for h in trainer.history if "loss/total" in h]
     assert train_logs == [6, 12, 18, 21]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        Trainer(step_fn, State(), 1, 1, options=TrainerOptions(workdir="runs/x"))
 
 
-def test_build_experiment_refuses_what_is_not_ported():
+def test_trainer_with_a_workdir_trains_and_saves(tmp_path):
+    """A ``workdir`` used to raise; the trainer now saves there: on the
+    checkpoint cadence and once more at the end of the run."""
+    from imm_tpu_torch.configs import get_preset
+    from imm_tpu_torch.experiment import build_experiment
+    from imm_tpu_torch.train.loop import checkpoint_steps
+
+    cfg = dataclasses.replace(get_preset("tiny_cpu"), workdir=str(tmp_path / "w"))
+    exp = build_experiment(cfg, device="cpu", total_steps=5)
+    exp.trainer.options.checkpoint_every = 2
+    state = exp.run()
+    assert state.host_step == int(state.step) == 5
+    assert checkpoint_steps(str(tmp_path / "w" / "checkpoints")) == [2, 4, 5]
+
+
+def test_build_experiment_refuses_what_is_not_ported(tmp_path):
     from imm_tpu_torch.configs import get_preset
     from imm_tpu_torch.experiment import build_experiment
 
     with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
         build_experiment(get_preset("celeba_k10"), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_experiment(dataclasses.replace(get_preset("tiny_cpu"), workdir="runs/x"), device="cpu")
+    exp = build_experiment(dataclasses.replace(get_preset("tiny_cpu"), workdir=str(tmp_path / "w")),
+                           device="cpu", total_steps=1)
+    exp.run()
+    assert (tmp_path / "w" / "checkpoints" / "1" / "state.pt").is_file()
