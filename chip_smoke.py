@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's four CUDA kernels from
-``imm_tpu_torch/csrc/``, holds each against its plain PyTorch version on the
+Run from the root of a checkout. It builds the port's four CUDA kernels and
+its nvJPEG shim from ``imm_tpu_torch/csrc/``, holds each kernel against its plain PyTorch version on the
 card, and drives the port's two main paths at full width (K=10, 128 px, bf16,
 B=128) through their entry points:
 
@@ -16,12 +16,21 @@ B=128) through their entry points:
 - the warp's gradient (``warp_image`` differentiated in the images and the
   warp parameters), the path of the warp's backward kernel, which training
   does not take;
-- after the timing phases, a training run that lasts (``synthetic_best``
-  with a workdir): a save timed beside the steps around it, a restore onto
-  the card and onto the CPU held bit for bit to the saved state, steps after
-  the resume, and ``cli.eval`` and ``cli.generate`` (PNG) from the workdir;
-  then ``cli.train --supervise``, whose child is killed after it resumed and
-  is started again by the supervisor, resumes again and finishes.
+- after the timing phases, training from image files: the committed JPEG
+  fixtures (``tests/torch_fixtures/``) decoded by nvJPEG against OpenCV's
+  decode, PNGs round-tripped, the resize on the card against the CPU
+  (``image_decode``); preset ``celeba_k10`` (K=10, B=64) on a CelebA/MAFL
+  tree of fixture copies for two windows of 20 host-fed steps and its eval,
+  in this process and through ``cli.train``, with the host-fed step timed
+  beside the on-device one and the loader's images/s (``host_data``);
+  ``human36m`` (K=16, B=64, temporal pairs) on PNG frames written here
+  (``temporal``); ``cli.generate --appearance/--pose`` on two JPEGs;
+- then a training run that lasts (``synthetic_best`` with a workdir): a
+  save timed beside the steps around it, a restore onto the card and onto
+  the CPU held bit for bit to the saved state, steps after the resume, and
+  ``cli.eval`` and ``cli.generate`` (PNG) from the workdir; then
+  ``cli.train --supervise``, whose child is killed after it resumed and is
+  started again by the supervisor, resumes again and finishes.
 
 It checks the launch counts and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
@@ -70,6 +79,15 @@ CKPT_STEPS, CKPT_EVERY = 16, 8  # one step a call: a save after the 8th and the 
 # SUPERVISE_TO whose child is killed once it logs step 50 (the trainer's
 # log_every) after its resume
 SUPERVISE_FROM, SUPERVISE_KILL_AT, SUPERVISE_TO = 10, 50, 60
+FIXTURES = ROOT / "tests" / "torch_fixtures"
+SMOKE = ROOT / "build" / "smoke"
+# nvJPEG against OpenCV (libjpeg-turbo) on each fixture: the mean absolute
+# difference in levels of 255. They upsample 4:2:0 chroma differently and
+# round their transforms differently.
+TOL_DECODE_MEAN = 1.0
+HOST_STEPS_PER_CALL, HOST_CALLS = 20, 2  # celeba_k10: two windows of the preset's 20 steps
+CELEBA_TRAIN, CELEBA_TEST = 144, 16  # MAFL names of the smoke's tree, copies of the fixtures
+H36M_FRAME, H36M_FRAMES, H36M_TRAIN_SEQS = 160, 30, 4  # PNG frames of the temporal tree
 PHASE_SECONDS: dict[str, float] = {}
 
 
@@ -248,14 +266,14 @@ def build_phase():
     from imm_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    libs = _build.build()  # one nvcc per source, all started together
+    libs = _build.build([*_build.KERNELS, *_build.SHIMS])  # one nvcc per source, all together
     build_s = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in path.with_suffix(".log").read_text().splitlines()
                if "registers" in ln or "spill" in ln]
         for name, path in libs.items() if path.with_suffix(".log").exists()
     }
-    check(set(libs) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd"},
+    check(set(libs) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd", "jpeg_decode"},
           f"kernels built: {sorted(libs)}")
     emit("build", seconds=build_s, libraries=[p.name for p in libs.values()], ptxas=ptxas)
 
@@ -308,6 +326,8 @@ def kernel_checks(dev) -> dict[str, float]:
         ((4, 16, 16, 10), (32, 32), 0.5),  # out_hw != input hw, another temperature
         ((4, 16, 16, 16), (16, 16), 1.0),  # K of the 16-landmark presets
         ((4, 16, 16, 20), (16, 16), 1.0),  # K of the 20-landmark presets
+        ((64, 16, 16, 16), (16, 16), 1.0),  # human36m's step: B=64, K=16
+        ((64, 16, 16, 20), (16, 16), 1.0),  # cats_k20's step: B=64, K=20
         ((4, 8, 8, 10), (8, 8), 1.0),  # 64 px images: an 8 x 8 map
         ((2, 32, 32, 10), (32, 32), 1.0),  # 256 px images: the strided route of both
         ((2, 16, 16, 40), (16, 16), 1.0),  # more landmarks than a block has warps
@@ -876,6 +896,7 @@ def timing_phases(dev, smi, serving, exp):
             step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - w0) * 1e2
+        train_p50 = p50
         emit("training", card=smi, preset="synthetic_best", batch=BATCH, reps=30,
              step_ms_p50=p50, step_ms_p90=p90, images_per_s=BATCH / p50 * 1e3,
              step_wall_ms_mean_of_10=wall_ms, pair_synthesis_ms_p50=synth_p50,
@@ -987,7 +1008,381 @@ def timing_phases(dev, smi, serving, exp):
     emit("swap_profile", card=smi, batch=BATCH, wall_ms_under_profiler=wall_ms,
          kernel_ms=device_ms, idle_share=1.0 - device_ms / wall_ms, by_kind=by_kind(rows),
          top=[[short_name(name), count, us / 1e3] for name, count, us in rows[:12]])
-    return timings
+    return timings, train_p50
+
+
+def fixture_references():
+    """-> [(file name, kind, OpenCV's RGB decode)] of the committed JPEGs."""
+    import numpy as np
+
+    z = np.load(FIXTURES / "cv2_decoded.npz")
+    pixels = np.cumsum(z["row_deltas"], axis=1, dtype=np.uint8)
+    return [(str(n), str(k), px) for n, k, px in zip(z["names"], z["kinds"], pixels)]
+
+
+def image_decode_slice(dev, smi):
+    """nvJPEG on the fixtures against OpenCV's decode, PNGs through
+    ``write_png`` and back bit for bit, the resize on the card equal to the
+    CPU's bit for bit; the decoder's and the loader chain's images/s."""
+    import numpy as np
+
+    from imm_tpu_torch.data import decode
+    from imm_tpu_torch.utils.viz import write_png
+
+    SMOKE.mkdir(parents=True, exist_ok=True)
+    per_kind: dict[str, dict] = {}
+    for name, kind, ref in fixture_references():
+        got = decode.decode_image((FIXTURES / name).read_bytes(), dev)
+        check(got.device.type == "cuda" and tuple(got.shape) == ref.shape,
+              f"{name}: decoded to {tuple(got.shape)} on {got.device}")
+        diff = np.abs(got.cpu().numpy().astype(np.int32) - ref)
+        k = per_kind.setdefault(kind, {"files": 0, "max_abs_diff": 0, "mean_abs_diff_max": 0.0})
+        k["files"] += 1
+        k["max_abs_diff"] = max(k["max_abs_diff"], int(diff.max()))
+        k["mean_abs_diff_max"] = max(k["mean_abs_diff_max"], float(diff.mean()))
+        check(diff.mean() <= TOL_DECODE_MEAN,
+              f"{name} ({kind}): nvJPEG differs from OpenCV by {diff.mean()} on average")
+    rng = np.random.default_rng(0)
+    for shape in ((218, 178), (128, 128), (1, 7)):
+        img = rng.integers(0, 256, (*shape, 3), dtype=np.uint8)
+        write_png(SMOKE / "roundtrip.png", img)
+        back = decode.read_image(SMOKE / "roundtrip.png", dev)
+        check(back.device.type == "cuda" and np.array_equal(back.cpu().numpy(), img),
+              f"PNG round trip {shape}")
+    # the loader's shapes: CelebA's square, its whole frame, an enlargement, a halving
+    for shape in ((64, 178, 178, 3), (8, 218, 178, 3), (4, 40, 36, 3), (4, 256, 256, 3)):
+        x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+        on_card = decode.resize_linear(x.to(dev), (128, 128)).cpu()
+        check(torch.equal(on_card, decode.resize_linear(x, (128, 128))), f"resize {shape}")
+    # Speed, host clock: nvJPEG alone on CelebA's kind of file, and one
+    # decode of each kind; the loader's whole chain (read, decode, centre
+    # square, resize, float) on 64 files of CelebA's kind and on 64 of the
+    # fixtures' mix; its stages apart.
+    refs = fixture_references()
+    jpegs = [(FIXTURES / n).read_bytes() for n, kind, _ in refs if kind == "baseline_420"]
+    for data in jpegs:
+        decode.decode_jpeg_cuda(data, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(640):
+        decode.decode_jpeg_cuda(jpegs[i % len(jpegs)], dev)
+    torch.cuda.synchronize()
+    nvjpeg_rate = 640 / (time.perf_counter() - t0)
+    decode_ms = {}
+    for name, kind, _ in refs:
+        if kind in decode_ms:
+            continue
+        data = (FIXTURES / name).read_bytes()
+        ms = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            decode.decode_jpeg_cuda(data, dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        decode_ms[kind] = statistics.median(ms)
+
+    def rate(fn, images, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return reps * images / (time.perf_counter() - t0)
+
+    celeba_kind = [FIXTURES / n for n, kind, _ in refs if kind == "baseline_420"]
+    celeba_kind = (celeba_kind * 5)[:64]
+    mix = sorted(FIXTURES.glob("*.jpg")) * 4
+    squares = [decode.crop_square(decode.read_image(p, dev), None) for p in celeba_kind]
+    chain = {
+        "read_files": rate(lambda: [p.read_bytes() for p in celeba_kind], 64),
+        "read_and_decode": rate(lambda: [decode.read_image(p, dev) for p in celeba_kind], 64),
+        "resize_and_float": rate(lambda: decode.resize_squares(squares, 128, None), 64),
+        "whole_celeba_kind": rate(lambda: decode.load_images_with_hw(celeba_kind, 128, None, dev), 64),
+        "whole_fixture_mix": rate(lambda: decode.load_images_with_hw(mix, 128, None, dev), 64),
+    }
+    emit("image_decode", card=smi, fixtures=sum(k["files"] for k in per_kind.values()),
+         nvjpeg_vs_opencv=per_kind, mean_abs_diff_bound=TOL_DECODE_MEAN,
+         png_roundtrip_bit_exact=True, resize_card_equals_cpu=True,
+         nvjpeg_images_per_s=nvjpeg_rate, nvjpeg_ms_by_kind=decode_ms,
+         loader_chain_images_per_s=chain)
+
+
+def make_celeba_tree(root: Path, kinds=None) -> None:
+    """An aligned-CelebA tree of copies of the fixtures (of the given
+    ``kinds``; default all): CELEBA_TRAIN MAFL training names, CELEBA_TEST
+    testing names, each with its face's landmarks."""
+    shutil.rmtree(root, ignore_errors=True)
+    img_dir = root / "Img" / "img_align_celeba"
+    img_dir.mkdir(parents=True)
+    fixtures = [FIXTURES / n for n, kind, _ in fixture_references() if kinds is None or kind in kinds]
+    lines = (FIXTURES / "list_landmarks_align_celeba.txt").read_text().splitlines()
+    points = {ln.split()[0]: ln.split()[1:] for ln in lines[2:]}
+    names = [f"{i + 1:06d}.jpg" for i in range(CELEBA_TRAIN + CELEBA_TEST)]
+    rows = []
+    for i, name in enumerate(names):
+        src = fixtures[i % len(fixtures)]
+        shutil.copy(src, img_dir / name)
+        rows.append(" ".join([name, *points[src.name]]))
+    (root / "Anno").mkdir()
+    (root / "Anno" / "list_landmarks_align_celeba.txt").write_text(
+        "\n".join([str(len(names)), lines[1], *rows]) + "\n")
+    (root / "MAFL").mkdir()
+    (root / "MAFL" / "training.txt").write_text("\n".join(names[:CELEBA_TRAIN]) + "\n")
+    (root / "MAFL" / "testing.txt").write_text("\n".join(names[CELEBA_TRAIN:]) + "\n")
+
+
+def file_preset(name: str, root: Path, **train):
+    """A file-backed preset at full width on the tree at ``root``."""
+    from imm_tpu_torch.configs import get_preset
+
+    cfg = get_preset(name)
+    return dataclasses.replace(cfg, data=dataclasses.replace(cfg.data, root=str(root)),
+                               train=dataclasses.replace(cfg.train, **train))
+
+
+def runtime_calls(fn, calls: int) -> list:
+    """[name, count, host ms] of the CUDA runtime calls that ``calls`` calls
+    of ``fn`` made in any thread (``torch.profiler``), most time first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [[e.key, e.count, e.cpu_time_total / 1e3] for e in prof.key_averages()
+            if e.key.startswith("cuda")]
+    return sorted(rows, key=lambda r: -r[2])
+
+
+def host_data_slice(dev, smi, synthetic_best_p50):
+    """``celeba_k10`` at full width from image files: two windows of 20
+    host-fed steps through ``build_experiment(config).run()`` and its eval,
+    then through ``cli.train``; the host-fed step timed beside the same
+    step on batches made beforehand and on on-device data; where the
+    loader's cost goes (a tree of one kind of JPEG, the CUDA runtime calls,
+    the interpreter's switch interval); the loader alone; one profiled
+    step; three steps through the ``tfdata`` route; -> the kernels' launches
+    on this path."""
+    from imm_tpu_torch.data.datasets import get_dataset
+    from imm_tpu_torch.data.decode import decode_jpeg_cuda
+    from imm_tpu_torch.experiment import build_experiment
+
+    root = SMOKE / "celeba"
+    make_celeba_tree(root)
+    cfg = file_preset("celeba_k10", root)
+    m = cfg.model
+    check((m.n_landmarks, m.image_size, m.compute_dtype, cfg.train.batch_size,
+           cfg.train.steps_per_call) == (10, 128, "bfloat16", 64, HOST_STEPS_PER_CALL),
+          f"celeba_k10 is not the preset the smoke expects: {m}, {cfg.train}")
+    n_steps = HOST_STEPS_PER_CALL * HOST_CALLS
+    decoded = decode_jpeg_cuda.images  # the loader's thread starts when the experiment is built
+    exp = build_experiment(cfg, total_steps=n_steps)
+    check(exp.device.type == "cuda", f"the experiment was built on {exp.device}")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    state = exp.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    decoded = decode_jpeg_cuda.images - decoded
+    check(state.host_step == n_steps == int(state.step), f"steps taken: {state.host_step}")
+    # every image of every step went through nvJPEG; beyond the steps' batches
+    # the experiment's bounded prefetch pulls up to 2 more (the panel's and a
+    # slack one) and the loader's thread keeps 2 ready and 1 in the making
+    check(n_steps * 64 <= decoded <= (n_steps + 5) * 64, f"nvJPEG decoded {decoded} images")
+    metrics = exp.trainer.history[-1]
+    check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
+    # per step: K1 and K2 on the target (the preset has no equivariance term,
+    # so no second pose pass), K3 for source and target
+    want = {"bottleneck_fwd": n_steps, "bottleneck_bwd": n_steps,
+            "warp_fwd": 2 * n_steps, "warp_bwd": 0}
+    check(launches == want, f"launches on the host-fed path {launches}, expected {want}")
+    ev = exp.eval_fn(state)
+    check(bool(ev) and all(math.isfinite(v) and v > 0 for v in ev.values()), f"eval: {ev}")
+    del exp
+
+    # The host-fed step, one a call: CUDA events around each call, the
+    # batch's pull included; beside it the same preset on on-device data.
+    exp1 = build_experiment(file_preset("celeba_k10", root, steps_per_call=1), total_steps=64)
+    gen = torch.Generator(dev).manual_seed(8)
+    step = lambda: exp1.step_fn(exp1.state, next(exp1.batches), gen)  # noqa: E731
+    p50, p90 = p50_p90(cuda_times(step, reps=30, warmup=3))
+    w0 = time.perf_counter()
+    for _ in range(10):
+        step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - w0) * 1e2
+    rows, prof_wall_ms = profiled_kernels(step, calls=1)
+    kernel_ms = sum(us for _, _, us in rows) / 1e3
+    # the same step on four batches taken beforehand and cycled, while the
+    # loader's thread waits on its full queue: the step without the loader
+    ready = [next(exp1.batches) for _ in range(4)]
+    cycle = iter(ready * 9)
+    idle_p50, _ = p50_p90(cuda_times(lambda: exp1.step_fn(exp1.state, next(cycle), gen),
+                                     reps=30, warmup=3))
+    del exp1, ready, cycle
+    syn_cfg = file_preset("celeba_k10", root, steps_per_call=1)
+    syn_cfg = dataclasses.replace(syn_cfg, data=dataclasses.replace(syn_cfg.data, source="synthetic"))
+    exp_syn = build_experiment(syn_cfg, total_steps=1)
+    syn_p50, syn_p90 = p50_p90(cuda_times(lambda: exp_syn.step_fn(exp_syn.state, gen),
+                                          reps=30, warmup=3))
+    del exp_syn
+
+    # Where the loader's cost goes: the host-fed step on a tree of CelebA's
+    # kind only (baseline 4:2:0), and the CUDA runtime calls of three
+    # host-fed steps on the mixed tree, the loader's thread included.
+    root420 = SMOKE / "celeba_420"
+    make_celeba_tree(root420, kinds=("baseline_420",))
+    exp420 = build_experiment(file_preset("celeba_k10", root420, steps_per_call=1), total_steps=40)
+    step420 = lambda: exp420.step_fn(exp420.state, next(exp420.batches), gen)  # noqa: E731
+    p50_420, _ = p50_p90(cuda_times(step420, reps=20, warmup=3))
+    del exp420
+    exp_diag = build_experiment(file_preset("celeba_k10", root, steps_per_call=1), total_steps=40)
+    step_diag = lambda: exp_diag.step_fn(exp_diag.state, next(exp_diag.batches), gen)  # noqa: E731
+    step_diag()
+    api = runtime_calls(step_diag, calls=3)
+    # and the host-fed step with the interpreter's lock handed between the
+    # threads every 0.1 ms instead of every 5 ms
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    try:
+        p50_switch, _ = p50_p90(cuda_times(step_diag, reps=20, warmup=3))
+    finally:
+        sys.setswitchinterval(interval)
+    del exp_diag
+
+    # The loader alone: batches of 64 made by its thread, after the two it
+    # keeps ready are taken.
+    ds = get_dataset("celeba", str(root), image_size=128, n_landmarks=10)
+    it = ds.train_batches(64, seed=1)
+    for _ in range(3):
+        next(it)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        b = next(it)
+    torch.cuda.current_stream().synchronize()
+    loader_rate = 640 / (time.perf_counter() - t0)
+    check(tuple(b["image"].shape) == (64, 128, 128, 3) and bool(torch.isfinite(b["image"]).all()),
+          f"loader batch {tuple(b['image'].shape)}")
+    emit("host_data", card=smi, preset="celeba_k10", batch=64, steps=n_steps,
+         steps_per_call=HOST_STEPS_PER_CALL, train_files=CELEBA_TRAIN, test_files=CELEBA_TEST,
+         run_s=run_s, launches=launches,
+         launches_per_step={k: v / n_steps for k, v in launches.items()},
+         nvjpeg_images_in_run=decoded, metrics=metrics, eval=ev,
+         host_fed_step_ms_p50=p50, host_fed_step_ms_p90=p90, host_fed_wall_ms_mean_of_10=wall_ms,
+         step_ms_p50_batches_ready_loader_waiting=idle_p50,
+         host_fed_step_ms_p50_baseline_420_tree=p50_420,
+         host_fed_step_ms_p50_switch_interval_0_1ms=p50_switch,
+         runtime_calls_of_3_host_fed_steps=api[:12],
+         on_device_step_ms_p50=syn_p50, on_device_step_ms_p90=syn_p90,
+         synthetic_best_b128_step_ms_p50=synthetic_best_p50,
+         loader_images_per_s=loader_rate, host_fed_images_per_s=64 / p50 * 1e3,
+         profiled_wall_ms=prof_wall_ms, profiled_kernel_ms=kernel_ms,
+         idle_share=1.0 - kernel_ms / prof_wall_ms, by_kind=by_kind(rows))
+
+    # the data.host_pipeline='tfdata' route: DataLoader workers read the
+    # files, this process decodes them with nvJPEG
+    tf_cfg = file_preset("celeba_k10", root, steps_per_call=1)
+    tf_cfg = dataclasses.replace(tf_cfg, data=dataclasses.replace(tf_cfg.data, host_pipeline="tfdata"))
+    decoded_tf = decode_jpeg_cuda.images
+    exp_tf = build_experiment(tf_cfg, total_steps=3)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    state_tf = exp_tf.run()
+    torch.cuda.synchronize()
+    tfdata_s = time.perf_counter() - t0
+    tf_launches = kernel_counts()
+    decoded_tf = decode_jpeg_cuda.images - decoded_tf
+    check(state_tf.host_step == 3 and all(math.isfinite(v) for v in exp_tf.trainer.history[-1].values()),
+          f"tfdata route: {exp_tf.trainer.history[-1:]}")
+    check(tf_launches == {"bottleneck_fwd": 3, "bottleneck_bwd": 3, "warp_fwd": 6, "warp_bwd": 0},
+          f"launches on the tfdata route {tf_launches}")
+    check(decoded_tf >= 3 * 64, f"the tfdata route decoded {decoded_tf} images with nvJPEG")
+    del exp_tf
+    emit("host_data_tfdata", preset="celeba_k10", steps=3, seconds_with_worker_start=tfdata_s,
+         launches=tf_launches, nvjpeg_images=decoded_tf)
+
+    proc = run_cli("imm_tpu_torch.cli.train", "--preset", "celeba_k10", f"data.root={root}",
+                   "--steps", str(n_steps))
+    check(f"finished at step {n_steps}" in proc.stderr, "cli.train did not finish")
+    finals = re.findall(r"final (\S+) = (\S+)", proc.stderr)
+    check(bool(finals) and all(math.isfinite(float(v)) for _, v in finals), f"cli.train eval: {finals}")
+    emit("cli_train_files", preset="celeba_k10", steps=n_steps,
+         eval={k: float(v) for k, v in finals})
+    return launches
+
+
+def make_h36m_tree(root: Path, dev) -> None:
+    """Human3.6M's layout: root/<split>/<sequence>/frame_*.png, PNGs written
+    with ``write_png`` from blob faces rendered on the card, and a
+    ``landmarks.npy`` per sequence of the faces' part centres in pixels."""
+    import numpy as np
+
+    from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
+    from imm_tpu_torch.utils.viz import to_uint8, write_png
+
+    shutil.rmtree(root, ignore_errors=True)
+    faces = SyntheticBlobFaces(image_size=H36M_FRAME)
+    for split, n_seq in (("train", H36M_TRAIN_SEQS), ("test", 1)):
+        for s in range(n_seq):
+            seq = root / split / f"S{s}"
+            seq.mkdir(parents=True)
+            out = faces.sample(torch.Generator(dev).manual_seed(100 * (split == "test") + s),
+                               H36M_FRAMES)
+            frames = to_uint8(out["image"].cpu().numpy())
+            for t, frame in enumerate(frames):
+                write_png(seq / f"frame_{t:04d}.png", frame)
+            yx = (out["landmarks"].cpu().numpy() + 1.0) / 2.0 * (H36M_FRAME - 1)
+            np.save(seq / "landmarks.npy", yx[..., ::-1].astype(np.float32))
+
+
+def temporal_slice(dev, smi):
+    """``human36m`` at full width (K=16, B=64, temporal pairs) from PNG
+    frames: one window of 20 steps and its eval (``eval_norm='size'``);
+    -> the kernels' launches on this path."""
+    from imm_tpu_torch.experiment import build_experiment
+
+    root = SMOKE / "h36m"
+    make_h36m_tree(root, dev)
+    cfg = file_preset("human36m", root)
+    m = cfg.model
+    check((m.n_landmarks, m.image_size, cfg.train.batch_size, cfg.data.pair_mode,
+           cfg.data.eval_norm) == (16, 128, 64, "temporal", "size"), f"human36m: {cfg}")
+    n_steps = cfg.train.steps_per_call
+    exp = build_experiment(cfg, total_steps=n_steps)
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    state = exp.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(state.host_step == n_steps == int(state.step), f"steps taken: {state.host_step}")
+    metrics = exp.trainer.history[-1]
+    check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
+    # per step: K1 and K2 on the target and on the equivariance view; K3 only
+    # for the view (warp_view): temporal pairs are not warped
+    want = {"bottleneck_fwd": 2 * n_steps, "bottleneck_bwd": 2 * n_steps,
+            "warp_fwd": n_steps, "warp_bwd": 0}
+    check(launches == want, f"launches on the temporal path {launches}, expected {want}")
+    ev = exp.eval_fn(state)
+    check(bool(ev) and all(math.isfinite(v) and v > 0 for v in ev.values()), f"eval: {ev}")
+    emit("temporal", card=smi, preset="human36m", batch=cfg.train.batch_size, steps=n_steps,
+         frames=H36M_FRAMES * (H36M_TRAIN_SEQS + 1), frame_size=H36M_FRAME, run_s=run_s,
+         launches=launches, launches_per_step={k: v / n_steps for k, v in launches.items()},
+         metrics=metrics, eval=ev, eval_norm=cfg.data.eval_norm)
+    return launches
+
+
+def generate_files_slice():
+    """``cli.generate --appearance/--pose`` on two JPEG fixtures, to a PNG."""
+    out = SMOKE / "x.png"
+    out.unlink(missing_ok=True)
+    run_cli("imm_tpu_torch.cli.generate", "--preset", "swap", "--appearance",
+            str(FIXTURES / "000001.jpg"), "--pose", str(FIXTURES / "000015.jpg"), "--out", str(out))
+    check(png_size(out) == (3 * 128, 128), f"{out}: {png_size(out)}")
+    emit("generate_files", appearance="tests/torch_fixtures/000001.jpg",
+         pose="tests/torch_fixtures/000015.jpg", png=list(png_size(out)))
 
 
 KERNELS = (  # name, source, the TPU kernel it replaces
@@ -1012,9 +1407,17 @@ def main() -> int:
         exp, train_launches = training_slice(dev)
     with timed("warp_grad_slice"):
         k4_launches = warp_grad_slice(dev)
-    timings = timing_phases(dev, smi, serving, exp)
-    # The runs that last come after the timing phases, which so time a
-    # process in the state they found it in before these phases existed.
+    timings, synthetic_best_p50 = timing_phases(dev, smi, serving, exp)
+    # The phases added since come after the timing phases, which so time a
+    # process in the state they found it in before those phases existed.
+    with timed("image_decode"):
+        image_decode_slice(dev, smi)
+    with timed("host_data"):
+        host_launches = host_data_slice(dev, smi, synthetic_best_p50)
+    with timed("temporal"):
+        temporal_launches = temporal_slice(dev, smi)
+    with timed("generate_files"):
+        generate_files_slice()
     with timed("checkpoint"):
         checkpoint_slice(dev)
     with timed("supervise"):
@@ -1023,9 +1426,11 @@ def main() -> int:
     emit("phase_seconds", **PHASE_SECONDS)
 
     # Launches on the main paths, each read right after its own run with the
-    # counts set to 0 just before: serving (K1) plus training (K1, K2, K3),
-    # and the warp-gradient path for K4.
-    launches = dict(train_launches)
+    # counts set to 0 just before: serving (K1) plus training on on-device
+    # data, on image files and on temporal pairs (K1, K2, K3), and the
+    # warp-gradient path for K4.
+    launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k]
+                for k in train_launches}
     launches["bottleneck_fwd"] += serving["launches"]
     launches["warp_bwd"] = k4_launches
     for name, count in launches.items():

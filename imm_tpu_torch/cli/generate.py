@@ -1,12 +1,15 @@
 """Pose-swap generation: the appearance of A in the pose of B.
 
 ``python -m imm_tpu_torch.cli.generate --preset swap --out swaps.npy
-[--workdir W [--ema] | --weights vars.npz | --seed 0] [--n 8] [--device cpu]``
+[--appearance a.jpg --pose b.jpg | --n 8] [--workdir W [--ema] |
+--weights vars.npz | --seed 0] [--device cpu]``
 
-Draws ``--n`` appearance and ``--n`` pose faces from the synthetic blob-face
-generator on the device and writes the (n, S, S, 3) swaps, clipped to [0, 1],
-as ``.npy``, or as a ``.png`` of three rows (appearance, pose, swap) of n
-images each. The model comes from the latest checkpoint in ``--workdir``
+With ``--appearance`` and ``--pose``, swaps the two image files (PNG or
+JPEG, decoded on the run's device, centre square, resized to the model's
+size: ``data.decode.load_image_with_hw``). Without them, draws ``--n``
+appearance and ``--n`` pose faces from the synthetic blob-face generator on
+the device. Writes the (n, S, S, 3) swaps, clipped to [0, 1], as ``.npy``,
+or as a ``.png`` of three rows (appearance, pose, swap) of n images each. The model comes from the latest checkpoint in ``--workdir``
 (``--ema``: its Polyak-averaged parameters), else from flax variables
 flattened to an ``.npz`` (``--weights``, ``imm_tpu_torch.models.convert``),
 else it is initialised from ``--seed``.
@@ -16,13 +19,15 @@ from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 import numpy as np
 import torch
 
 from imm_tpu_torch.cli._common import add_config_args, resolve_config, setup_logging
+from imm_tpu_torch.data.decode import load_image_with_hw
 from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
-from imm_tpu_torch.eval.swap import pose_swap
+from imm_tpu_torch.eval.swap import swap_fn
 from imm_tpu_torch.experiment import build_experiment
 from imm_tpu_torch.models.convert import load_flax_weights
 from imm_tpu_torch.models.imm import init_model
@@ -51,12 +56,11 @@ def main(argv=None):
     setup_logging()
     config = resolve_config(args)
     device = get_device(args.device)
-    if args.appearance or args.pose:
-        raise SystemExit(
-            "--appearance/--pose: reading images from files is not ported yet "
-            "(ROADMAP.md, Queue 1 item 9): it needs an image decoder, and the "
-            "GPU machine has none of cv2, PIL or torchvision"
-        )
+    if bool(args.appearance) != bool(args.pose):
+        raise SystemExit("--appearance and --pose go together: give both image paths")
+    for path in (args.appearance, args.pose):
+        if path and not os.path.isfile(path):
+            raise SystemExit(f"no image file at {path}")
     if not args.out.endswith((".npy", ".png")):
         raise SystemExit("--out: write .npy or .png")
     if config.workdir and args.weights:
@@ -83,10 +87,15 @@ def main(argv=None):
         if args.weights:
             load_flax_weights(model, args.weights)
 
-    faces = SyntheticBlobFaces(image_size=config.model.image_size)
-    app = faces.sample(torch.Generator(device).manual_seed(1), args.n)["image"]
-    pose = faces.sample(torch.Generator(device).manual_seed(2), args.n)["image"]
-    out = pose_swap(model, app, pose).clamp(0.0, 1.0).cpu().numpy()
+    size = config.model.image_size
+    if args.appearance:
+        app = load_image_with_hw(args.appearance, size, None, device)[0][None]
+        pose = load_image_with_hw(args.pose, size, None, device)[0][None]
+    else:
+        faces = SyntheticBlobFaces(image_size=size)
+        app = faces.sample(torch.Generator(device).manual_seed(1), args.n)["image"]
+        pose = faces.sample(torch.Generator(device).manual_seed(2), args.n)["image"]
+    out = swap_fn(model)(app, pose).clamp(0.0, 1.0).cpu().numpy()
     if args.out.endswith(".npy"):
         np.save(args.out, out)
     else:

@@ -6,26 +6,39 @@ points and ``chip_smoke.py``. Everything is built on one device: the GPU
 unless the caller asks for the CPU (``utils.device.get_device`` raises
 without a GPU otherwise).
 
-Ported so far: ``data.source == 'synthetic'`` in both pair modes, with
-checkpoints in ``config.workdir``. The host datasets and data-parallel meshes
-raise ``NotImplementedError`` naming their item in ROADMAP.md.
+Data comes from the synthetic generator inside the step, or from a
+file-backed dataset (``data.source`` 'celeba', 'aflw', 'cats', 'human36m'
+under ``data.root``), decoded on the device. With ``steps_per_call`` > 1 the
+JAX package stacks a window's host batches into one super-batch for
+``lax.scan``; here step *i* of a window takes the *i*-th batch of the stream
+as it comes, the same batches in the same order, so no (window, B, S, S, 3)
+tensor is built. Data-parallel processes raise ``NotImplementedError``
+(ROADMAP.md, Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
+from collections.abc import Iterator
 from typing import Any
 
 import torch
 
+from imm_tpu_torch.data.datasets import get_dataset, prefetch_iterator
 from imm_tpu_torch.data.pairs import PairSynthesizer
 from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
 from imm_tpu_torch.eval.regression import evaluate_landmarks
 from imm_tpu_torch.losses.perceptual import ReconstructionLoss, n_loss_terms
+from imm_tpu_torch.parallel.distributed import process_shard_spec
 from imm_tpu_torch.train.loop import Trainer, TrainerOptions
 from imm_tpu_torch.train.state import TrainState, create_train_state
-from imm_tpu_torch.train.steps import make_eval_coords_fn, make_synthetic_train_step
+from imm_tpu_torch.train.steps import (
+    make_eval_coords_fn,
+    make_synthetic_train_step,
+    make_train_step,
+)
 from imm_tpu_torch.utils.config import ExperimentConfig
 from imm_tpu_torch.utils.device import get_device
 from imm_tpu_torch.utils.viz import training_summary_panel
@@ -47,6 +60,7 @@ class Experiment:
     eval_fn: Any  # (state) -> dict[str, float]
     trainer: Trainer
     restore: bool = True
+    batches: Iterator | None = None  # host-fed: what the trainer pulls, one item a call
 
     def run(self) -> TrainState:
         if self.restore:
@@ -80,11 +94,6 @@ def build_experiment(
                           options=TrainerOptions(workdir=config.workdir or None))
         return Experiment(config=config, device=dev, model=model, state=state, loss_fn=None,
                           step_fn=None, eval_fn=None, trainer=trainer, restore=restore)
-    if config.data.source != "synthetic":
-        raise NotImplementedError(
-            f"data.source={config.data.source!r}: the host datasets are not ported "
-            "yet (ROADMAP.md, Queue 1 item 9); only 'synthetic' runs"
-        )
     loss_fn = ReconstructionLoss(config.loss, device=dev)
     model, state = create_train_state(
         config.train.seed, config.model, config.train, loss_fn.n_terms, device=dev
@@ -93,45 +102,93 @@ def build_experiment(
     scan = config.train.steps_per_call
     steps = total_steps if total_steps is not None else config.train.total_steps
     pair_mode = config.data.pair_mode
+    viz_keys = ("image",) if pair_mode == "tps" else ("image_a", "image_b")
+    batches = None
 
-    faces = SyntheticBlobFaces(
-        image_size=config.model.image_size, pair_pose_gap=config.data.temporal_pose_gap
-    )
-    if pair_mode == "tps":
-
-        def sample_batch(gen):
-            return {"image": faces.sample(gen, batch)["image"]}
-    else:
-
-        def sample_batch(gen):
-            out = faces.sample_pair(gen, batch)
-            return {"image_a": out["image_a"], "image_b": out["image_b"]}
-
-    step_fn = make_synthetic_train_step(
-        model, loss_fn, config.train, pair, sample_batch, pair_mode=pair_mode, scan_steps=scan
-    )
-
-    @functools.cache
-    def eval_splits():
-        """The synthetic eval set is deterministic (fixed seeds): built once,
-        kept on the host."""
-        return tuple(
-            {k: v.cpu().numpy() for k, v in
-             faces.sample(torch.Generator(dev).manual_seed(seed), config.eval_samples).items()}
-            for seed in _EVAL_SEEDS
+    if config.data.source == "synthetic":
+        faces = SyntheticBlobFaces(
+            image_size=config.model.image_size, pair_pose_gap=config.data.temporal_pose_gap
         )
+        if pair_mode == "tps":
+
+            def sample_batch(gen, b=batch):
+                return {"image": faces.sample(gen, b)["image"]}
+        else:
+
+            def sample_batch(gen, b=batch):
+                out = faces.sample_pair(gen, b)
+                return {"image_a": out["image_a"], "image_b": out["image_b"]}
+
+        step_fn = make_synthetic_train_step(
+            model, loss_fn, config.train, pair, sample_batch, pair_mode=pair_mode, scan_steps=scan
+        )
+
+        @functools.cache
+        def eval_splits():
+            """The synthetic eval set is deterministic (fixed seeds): built once,
+            kept on the host."""
+            return tuple(
+                {k: v.cpu().numpy() for k, v in
+                 faces.sample(torch.Generator(dev).manual_seed(seed), config.eval_samples).items()}
+                for seed in _EVAL_SEEDS
+            )
+
+        def viz_frames():
+            return sample_batch(torch.Generator(dev).manual_seed(_VIZ_SEED), 4)
+
+    else:
+        pipeline = config.data.host_pipeline
+        if pipeline not in ("threaded", "tfdata"):
+            raise ValueError(f"unknown data.host_pipeline: {pipeline!r}")
+        if pipeline == "tfdata" and pair_mode == "temporal":
+            raise ValueError(
+                "data.host_pipeline='tfdata' supports tps pair mode only; "
+                "temporal pair sampling uses the threaded loader"
+            )
+        if process_shard_spec() is not None:
+            # each process would train a model of its own on its shard of the
+            # files: the step has no all-reduce yet
+            raise NotImplementedError(
+                "several processes: data-parallel steps are not ported yet "
+                "(ROADMAP.md, Queue 1 item 10)"
+            )
+        step_fn = make_train_step(model, loss_fn, config.train, pair, pair_mode, scan_steps=scan)
+        dataset = get_dataset(
+            config.data.source,
+            config.data.root,
+            image_size=config.model.image_size,
+            n_landmarks=config.model.n_landmarks,
+            device=dev,
+        )
+        seed = config.train.seed
+        if pair_mode == "temporal":
+            raw = dataset.train_pair_batches(batch, seed=seed)
+        elif pipeline == "tfdata":
+            raw = dataset.tfdata_batches(batch, seed=seed)
+        else:
+            raw = dataset.train_batches(batch, seed=seed)
+        # One batch a step, at most the prefetch depth ahead on the device.
+        # The source is bounded to what the trainer, the one panel batch and
+        # one slack pull can take, so the producer thread ends and frees its
+        # buffered batches when training does; it starts on the first pull.
+        n_pulls = -(-steps // scan) * scan + 2
+        stream = prefetch_iterator(itertools.islice(raw, n_pulls), depth=2)
+        batches = stream if scan == 1 else _windows(stream, scan)
+
+        def eval_splits():
+            return dataset.eval_arrays("train"), dataset.eval_arrays("test")
+
+        def viz_frames():  # one training batch, taken once
+            return next(stream)
 
     coords_fn = make_eval_coords_fn(model)
 
-    # Periodic image panels: a fixed batch of four faces through pair
+    # Periodic image panels: a fixed batch of four frames through pair
     # synthesis (the same draws every time) and the model in eval mode.
     @functools.cache
     def viz_batch():
-        gen = torch.Generator(dev).manual_seed(_VIZ_SEED)
-        if pair_mode == "tps":
-            return {"image": faces.sample(gen, 4)["image"]}
-        out = faces.sample_pair(gen, 4)
-        return {"image_a": out["image_a"], "image_b": out["image_b"]}
+        frames = viz_frames()
+        return {k: frames[k][:4] for k in viz_keys}
 
     def viz_fn(state):
         viz = viz_batch()
@@ -173,6 +230,7 @@ def build_experiment(
         total_steps=steps,
         batch_size=batch,
         steps_per_call=scan,
+        batches=batches,
         options=TrainerOptions(
             workdir=config.workdir or None, stall_timeout_s=config.stall_timeout_s
         ),
@@ -183,5 +241,13 @@ def build_experiment(
     )
     return Experiment(
         config=config, device=dev, model=model, state=state, loss_fn=loss_fn,
-        step_fn=step_fn, eval_fn=eval_fn, trainer=trainer, restore=restore,
+        step_fn=step_fn, eval_fn=eval_fn, trainer=trainer, restore=restore, batches=batches,
     )
+
+
+def _windows(stream: Iterator[dict], n: int) -> Iterator[Iterator[dict]]:
+    """The trainer's items with ``n`` steps per call: each call's window, an
+    iterator over the stream's next ``n`` batches, pulled as the steps take
+    them."""
+    while True:
+        yield itertools.islice(stream, n)

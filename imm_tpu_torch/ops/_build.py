@@ -3,7 +3,8 @@
 Each source in ``imm_tpu_torch/csrc/`` exposes a plain C entry point. It is
 compiled by ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/kernels/`` of the checkout (git-ignored) at first use, and loaded
-with ``ctypes``. The library's name carries a hash of its source and flags,
+with ``ctypes``. The host shims (``SHIMS``: the nvJPEG decoder) are built the
+same way, with the toolkit libraries they link. The library's name carries a hash of its source and flags,
 so an edited source is rebuilt and a built one is reused. Nothing is built
 when this module is imported.
 """
@@ -49,6 +50,17 @@ KERNELS = {
     ),
 }
 
+# host shim name -> (source file, libraries it links, {C function: signature})
+_S = ctypes.c_size_t
+SHIMS = {
+    "jpeg_decode": (
+        "jpeg_decode.cu",
+        ("-lnvjpeg",),
+        {"jpeg_info": ((_P, _S, _P, _P, _P), _I),
+         "jpeg_decode_rgbi": ((_P, _S, _P, _I, _I, _P), _I)},
+    ),
+}
+
 
 def _nvcc() -> str:
     found = shutil.which("nvcc")
@@ -61,18 +73,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the port's CUDA kernels build with the CUDA toolkit")
 
 
+def _source_and_libs(name: str) -> tuple[str, tuple[str, ...]]:
+    if name in KERNELS:
+        return KERNELS[name][0], ()
+    return SHIMS[name][0], SHIMS[name][1]
+
+
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives once built."""
-    source = CSRC / KERNELS[name][0]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where kernel or shim ``name``'s library lives once built."""
+    source, libs = _source_and_libs(name)
+    flags = " ".join(NVCC_FLAGS + libs).encode()
+    digest = hashlib.sha256((CSRC / source).read_bytes() + flags)
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict[str, Path]:
-    """Build the named kernels (default: all), one ``nvcc`` each, all started
-    together. Returns name -> library path; raises on any compiler error.
-    ``nvcc``'s output (with ``-Xptxas -v``: registers, shared memory and
-    spills per kernel) is kept beside each library as ``.log``."""
+    """Build the named kernels and shims (default: all kernels), one ``nvcc``
+    each, all started together. Returns name -> library path; raises on any
+    compiler error. ``nvcc``'s output (with ``-Xptxas -v``: registers, shared
+    memory and spills per kernel) is kept beside each library as ``.log``. A
+    shim finds its toolkit libraries at run time through the toolkit's
+    ``lib64``, recorded in the library (``-rpath``)."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
@@ -83,7 +104,11 @@ def build(names=None) -> dict[str, Path]:
     procs = {}
     for n, p in todo.items():
         tmp = p.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[n][0])]
+        source, libs = _source_and_libs(n)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source), *libs]
+        if libs:
+            lib64 = Path(nvcc).resolve().parents[1] / "lib64"
+            cmd += ["-Xlinker", f"-rpath={lib64}"]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -92,7 +117,7 @@ def build(names=None) -> dict[str, Path]:
         out, _ = proc.communicate()
         todo[n].with_suffix(".log").write_text(out)
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {KERNELS[n][0]} (rc {proc.returncode}):\n{out}")
+            errors.append(f"nvcc failed for {n} (rc {proc.returncode}):\n{out}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, todo[n])
@@ -108,6 +133,17 @@ def load(name: str):
     fn = getattr(lib, name)
     fn.argtypes, fn.restype = KERNELS[name][1]
     return fn
+
+
+@functools.cache
+def load_shim(name: str) -> ctypes.CDLL:
+    """Host shim ``name``'s library with its C functions typed, built first
+    if need be."""
+    lib = ctypes.CDLL(str(build([name])[name]))
+    for fn_name, (argtypes, restype) in SHIMS[name][2].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
 
 
 def check(name: str, code: int) -> None:

@@ -315,14 +315,21 @@ def make_train_step(
 ) -> Callable[[TrainState, dict[str, Any], torch.Generator], tuple[TrainState, Metrics]]:
     """Host-fed step ``(state, batch, gen)``. ``batch`` keys: 'image' (tps) or
     'image_a'/'image_b' (temporal), tensors on the state's device. With
-    ``scan_steps > 1`` every batch leaf has an extra leading axis of that
-    length and the returned metrics are averaged over it.
+    ``scan_steps > 1`` the returned metrics are averaged over the window, and
+    ``batch`` is either such a dict whose every leaf has an extra leading
+    axis of that length, or an iterator that yields the window's batches one
+    by one, each taken as its step starts (the experiment's stream: no
+    (scan_steps, B, ...) tensor is built).
 
     ``mesh``: data parallelism is not ported yet; anything but None raises.
     """
 
     def get_batch(gen, batch, i):
-        return batch if i is None else {k: v[i] for k, v in batch.items()}
+        if i is None:
+            return batch
+        if isinstance(batch, dict):
+            return {k: v[i] for k, v in batch.items()}
+        return next(batch)
 
     step = _make_step(
         model, loss_fn, train_config, pair_synth, pair_mode, scan_steps, mesh, get_batch

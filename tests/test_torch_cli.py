@@ -112,7 +112,7 @@ def test_generate_refuses_what_it_cannot_do(tmp_path):
     from imm_tpu_torch.cli.generate import main
 
     base = ["--preset", "tiny_cpu", "--n", "2", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="Queue 1 item 9"):
+    with pytest.raises(SystemExit, match="no image file at a.png"):
         main([*base, "--appearance", "a.png", "--pose", "b.png", "--out", str(tmp_path / "s.npy")])
     with pytest.raises(SystemExit, match=r"\.npy or \.png"):
         main([*base, "--out", str(tmp_path / "s.jpg")])

@@ -54,6 +54,45 @@ def test_port_sources_import_no_jax(path):
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
 
 
+def _module_level_imports(tree):
+    """The import statements that run when the module is imported: those
+    outside any function body."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            yield node.module or ""
+        todo.extend(ast.iter_child_nodes(node))
+
+
+@pytest.mark.parametrize(
+    "path", [*sorted(PORT.rglob("*.py")), ROOT / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(ROOT)),
+)
+def test_port_sources_import_cv2_only_inside_functions(path):
+    """The GPU machine has no OpenCV: the CPU decode path imports it when it
+    first decodes a JPEG, never when a module is imported."""
+    for name in _module_level_imports(ast.parse(path.read_text())):
+        assert name.split(".")[0] != "cv2", f"{path}: imports {name} at module level"
+
+
+def test_importing_the_port_loads_no_cv2():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {list(_port_modules())!r}:\n"
+        "    importlib.import_module(m)\n"
+        "assert 'cv2' not in sys.modules\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_default_device_raises_without_cuda(monkeypatch):
     from imm_tpu_torch.losses.perceptual import ReconstructionLoss
     from imm_tpu_torch.models.imm import IMMConfig, init_model

@@ -472,7 +472,7 @@ def test_build_experiment_refuses_what_is_not_ported(tmp_path):
     from imm_tpu_torch.configs import get_preset
     from imm_tpu_torch.experiment import build_experiment
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(FileNotFoundError, match="dataset root not found"):
         build_experiment(get_preset("celeba_k10"), device="cpu")
     exp = build_experiment(dataclasses.replace(get_preset("tiny_cpu"), workdir=str(tmp_path / "w")),
                            device="cpu", total_steps=1)
