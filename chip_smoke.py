@@ -30,7 +30,21 @@ B=128) through their entry points:
   the CPU held bit for bit to the saved state, steps after the resume, and
   ``cli.eval`` and ``cli.generate`` (PNG) from the workdir; then
   ``cli.train --supervise``, whose child is killed after it resumed and is
-  started again by the supervisor, resumes again and finishes.
+  started again by the supervisor, resumes again and finishes;
+- then the last slice's phases: ``custom_ops`` (``torch.library.opcheck``
+  of the four kernels' custom ops at the main path's shapes, and the op's
+  dispatch cost on the host); ``data_parallel`` (two ``gloo`` ranks sharing
+  the card: one ``synthetic_best`` step of 2 x 64 against 1 x 128, a window
+  of the preset on each rank with its launches and the ranks' parameters
+  equal bit for bit; a world of one over NCCL; ``torchrun ... cli.train``;
+  ``dryrun_multichip(2)`` on the card);
+  ``export`` (the landmarker at B=128 and B=1 and the swap generator at
+  B=128 exported with ``torch.export``, loaded in a child that imports
+  ``imm_tpu_torch.ops`` and not the models, held to ``landmark_fn`` and
+  ``swap_fn``, timed); ``s2d`` (the space-to-depth entry conv against the
+  direct one, and a ``swap`` forward with ``entry_s2d=2``); ``device_init``
+  (the bounded first CUDA init of a fresh process) and ``bench``
+  (``imm_tpu_torch.bench``'s entry point in both modes, with few calls).
 
 It checks the launch counts and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
@@ -61,6 +75,8 @@ from pathlib import Path
 
 import torch
 
+from imm_tpu_torch.bench import p50_p90, times_ms
+
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores
@@ -88,6 +104,17 @@ TOL_DECODE_MEAN = 1.0
 HOST_STEPS_PER_CALL, HOST_CALLS = 20, 2  # celeba_k10: two windows of the preset's 20 steps
 CELEBA_TRAIN, CELEBA_TEST = 144, 16  # MAFL names of the smoke's tree, copies of the fixtures
 H36M_FRAME, H36M_FRAMES, H36M_TRAIN_SEQS = 160, 30, 4  # PNG frames of the temporal tree
+# data_parallel: a window of 5 steps to build and warm up, then two timed
+DP_WARMUP_STEPS, DP_STEPS = 5, 10
+# one SGD step of 2 ranks x 64 against 1 process x 128 in float32, both
+# with BatchNorm's variance as E[x^2] - E[x]^2: the parameter change's
+# largest difference relative to its largest entry, and the loss, relative.
+# Only the order of the sums differs. scripts/dp_step_tolerance.py read, on
+# an H100: sound ranks 3.8e-4 (the entry conv's weight, whose gradient
+# carries a rounding floor of 4-7e-4 under any reordering); the statistics
+# all-reduced without their cross-rank gradient 1.5e-2, with a plain
+# dist.all_reduce 0.14. The bound lies between them.
+TOL_DP_PARAM_REL, TOL_DP_LOSS_REL = 1e-3, 1e-4
 PHASE_SECONDS: dict[str, float] = {}
 
 
@@ -116,24 +143,9 @@ class timed:
 
 def cuda_times(fn, reps: int = 100, warmup: int = 5, inner: int = 1) -> list[float]:
     """Device time (ms) of ``inner`` back-to-back calls, per call, from CUDA
-    events, for each of ``reps`` repetitions after ``warmup`` calls."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return times
-
-
-def p50_p90(times: list[float]) -> tuple[float, float]:
-    q = statistics.quantiles(times, n=10, method="inclusive")
-    return statistics.median(times), q[8]
+    events, for each of ``reps`` repetitions after ``warmup`` calls (the
+    bench's timing, ``imm_tpu_torch.bench.times_ms``)."""
+    return times_ms(fn, torch.device("cuda"), reps, warmup, inner)
 
 
 def profiled_kernels(fn, calls: int):
@@ -487,7 +499,8 @@ def serving_slice(dev):
     check(cli_out.shape == (8, s, s, 3) and bool(np.isfinite(cli_out).all()),
           f"cli output {cli_out.shape}")
     emit("cli_generate", shape=list(cli_out.shape))
-    return dict(landmarks=landmarks, swap=swap, app=app, pose=pose, launches=launches)
+    return dict(landmarks=landmarks, swap=swap, app=app, pose=pose, launches=launches, model=model,
+                swaps=swaps, coords=coords, swap_tol=swap_tol)
 
 
 def kernel_counts():
@@ -1385,6 +1398,351 @@ def generate_files_slice():
          pose="tests/torch_fixtures/000015.jpg", png=list(png_size(out)))
 
 
+def op_cases(dev):
+    """The four custom ops' arguments at the main path's shapes: K1 (with the
+    gradient, so its autograd to K2 is checked) and K2 with and without the
+    maps' cotangent on (128, 16, 16, 10) heatmaps; K3 (with the gradient:
+    K4 behind it) and K4 on (128, 128, 128, 3) images at a
+    ``synthetic_best`` TPS grid."""
+    gen = torch.Generator(dev).manual_seed(14)
+    hm = torch.randn((BATCH, 16, 16, 10), generator=gen, device=dev) * 3.0
+    dc = torch.randn((BATCH, 10, 2), generator=gen, device=dev)
+    dm = torch.randn((BATCH, 16, 16, 10), generator=gen, device=dev)
+    images = torch.rand((BATCH, 128, 128, 3), generator=gen, device=dev)
+    _, grid = synthetic_best_pair_grid(gen, BATCH, 128)
+    grid = grid.contiguous()
+    cot = torch.randn((BATCH, 128, 128, 3), generator=gen, device=dev)
+    ops = torch.ops.imm_tpu
+    return [
+        ("bottleneck_fwd", ops.bottleneck_fwd.default, (hm.clone().requires_grad_(), 16, 16, 10.0, 1.0)),
+        ("bottleneck_bwd", ops.bottleneck_bwd.default, (hm, dc, dm, 16, 16, 10.0, 1.0)),
+        ("bottleneck_bwd_no_dmaps", ops.bottleneck_bwd.default, (hm, dc, None, 16, 16, 10.0, 1.0)),
+        ("warp_fwd", ops.warp_fwd.default, (images.clone().requires_grad_(), grid.clone().requires_grad_())),
+        ("warp_bwd", ops.warp_bwd.default, (images, grid, cot)),
+    ]
+
+
+def custom_ops_slice(dev, smi):
+    """``torch.library.opcheck`` of each kernel's custom op; and the host
+    time of one B=1 launch of K1 through the op against the same launch
+    through its ``ctypes`` entry point alone (the op's dispatch cost)."""
+    from imm_tpu_torch.ops import fused
+
+    results = {}
+    for name, op, args in op_cases(dev):
+        report = torch.library.opcheck(op, args)
+        check(all(v == "SUCCESS" for v in report.values()), f"opcheck {name}: {report}")
+        results[name] = report
+    torch.cuda.synchronize()
+    hm1 = torch.randn((1, 16, 16, 10), generator=torch.Generator(dev).manual_seed(15), device=dev)
+
+    def host_us(fn, calls=2000):
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    via_op = lambda: fused.landmark_bottleneck(hm1, (16, 16), 10.0, impl="pallas")  # noqa: E731
+    direct = lambda: fused._launch_fwd(hm1, (16, 16), 10.0, 1.0)  # noqa: E731
+    # in turns: direct, op, op, direct
+    times = [host_us(f) for f in (direct, via_op, via_op, direct)]
+    emit("custom_ops", card=smi, ops=["imm_tpu::" + n for n in
+                                      ("bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd")],
+         opcheck=results, k1_b1_host_us_per_call_direct=[times[0], times[3]],
+         k1_b1_host_us_per_call_through_op=[times[1], times[2]],
+         dispatch_us=statistics.mean(times[1:3]) - statistics.mean([times[0], times[3]]))
+
+
+def nccl_version() -> str:
+    v = torch.cuda.nccl.version()  # an int in older torch, a tuple in newer
+    return ".".join(map(str, v)) if isinstance(v, tuple) else str(v)
+
+
+def data_parallel_slice(dev, smi):
+    """Two ranks sharing the card through ``gloo``: one ``synthetic_best``
+    step (f32, SGD) on injected inputs, 2 x 64 against this process's 1 x
+    128 (BatchNorm's variance as E[x^2] - E[x]^2 in both); a window of the
+    preset as it is on each rank; a world of one over NCCL; ``torchrun ...
+    cli.train``; the dry run's entry point. -> the kernels' launches of the
+    two ranks' timed window."""
+    from imm_tpu_torch.configs import get_preset
+    from imm_tpu_torch.parallel import dryrun
+
+    work = SMOKE / "data_parallel"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "window").mkdir(parents=True)
+    inputs = dryrun.preset_step_inputs(get_preset("synthetic_best"), BATCH, dev)
+    torch.save(inputs, work / "inputs.pt")
+    one = dryrun.injected_steps(inputs, dev)
+    window_cfg = dataclasses.replace(smoke_config(SMOKE_STEPS_PER_CALL), eval_every=0)
+    torch.save(dict(config=window_cfg, steps=DP_STEPS, warmup_steps=DP_WARMUP_STEPS),
+               work / "window" / "inputs.pt")
+    t0 = time.perf_counter()
+    dryrun.spawn(dryrun.worker_sequence, 2, [
+        (dryrun.injected_step_worker, (str(work / "inputs.pt"), "cuda")),
+        (dryrun.experiment_worker, (str(work / "window" / "inputs.pt"), "cuda")),
+    ], device="cuda", backend="gloo", local_rank=0, timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    steps = [torch.load(work / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+    windows = [torch.load(work / "window" / f"rank{r}.pt", weights_only=False) for r in (0, 1)]
+
+    # one step: the ranks agree bit for bit, and with one process
+    differ = [k for k, v in steps[0]["state_dict"].items() if not torch.equal(v, steps[1]["state_dict"][k])]
+    check(not differ and steps[0]["metrics"] == steps[1]["metrics"], f"the ranks' step differs: {differ[:5]}")
+    diff = dryrun.step_difference(inputs["state_dict"], one, steps[0])
+    loss2, loss1 = steps[0]["metrics"]["loss/total"], one["metrics"]["loss/total"]
+    check(diff["loss_rel"] <= TOL_DP_LOSS_REL and diff["param_rel"] <= TOL_DP_PARAM_REL,
+          f"2 ranks x 64 against 1 x 128: loss {loss2} vs {loss1}, {diff}")
+
+    # the window: every rank launched K1/K2/K3 each step, and ended equal
+    want = {"bottleneck_fwd": 2 * DP_STEPS, "bottleneck_bwd": 2 * DP_STEPS,
+            "warp_fwd": 2 * DP_STEPS, "warp_bwd": 0}
+    for w in windows:
+        check(w["launches"] == want, f"rank {w['rank']} launched {w['launches']}, expected {want}")
+        check(w["host_step"] == DP_WARMUP_STEPS + DP_STEPS and w["same_on_every_rank"],
+              f"rank {w['rank']}: step {w['host_step']}, same on every rank {w['same_on_every_rank']}")
+        check(all(math.isfinite(v) for h in w["history"] for v in h.values()), "non-finite metric")
+    differ = [k for k, v in windows[0]["state_dict"].items()
+              if not torch.equal(v, windows[1]["state_dict"][k])]
+    check(not differ, f"the ranks' parameters differ after the window: {differ[:5]}")
+
+    # a world of one over NCCL
+    probe = work / "nccl.pt"
+    dryrun.spawn(dryrun.collectives_probe_worker, 1, str(probe), device="cuda", timeout_s=300)
+    nccl = torch.load(probe, weights_only=False)
+    check(nccl["backend"] == "nccl" and nccl["device"].startswith("cuda")
+          and torch.equal(nccl["all_reduce"], torch.arange(4.0))
+          and torch.equal(nccl["broadcast"], torch.full((3,), 7.0)), f"NCCL probe: {nccl}")
+
+    # torchrun, one process a card
+    proc = run_cli("torch.distributed.run", "--standalone", "--nproc_per_node=1", "-m",
+                   "imm_tpu_torch.cli.train", "--preset", "synthetic_best", "--steps", "5",
+                   f"train.steps_per_call={SMOKE_STEPS_PER_CALL}", "eval_samples=256")
+    check("finished at step 5" in proc.stderr and "mesh {'data': 1}" in proc.stderr,
+          f"torchrun cli.train: {proc.stderr[-2000:]}")
+    # the dry run on the card, its default: two gloo ranks on card 0; it
+    # raises unless both end at step 2 with the same parameters
+    t1 = time.perf_counter()
+    dryrun.dryrun_multichip(2)
+    dryrun_s = time.perf_counter() - t1
+    launches = {k: sum(w["launches"][k] for w in windows) for k in want}
+    emit("data_parallel", card=smi, note="two ranks share one card through gloo: not a scaling figure",
+         ranks=2, backend="gloo", step_batch_per_rank=BATCH // 2, step_loss_2x64=loss2,
+         step_loss_1x128=loss1, loss_rel=diff["loss_rel"], loss_rtol=TOL_DP_LOSS_REL,
+         param_change_rel=diff["param_rel"], param_change_rel_at=diff["param_rel_at"],
+         param_change_rtol=TOL_DP_PARAM_REL, batch_stats_max_abs_diff=diff["stats_max_abs"],
+         ranks_bit_equal_after_step=True,
+         window_preset="synthetic_best", window_steps=DP_STEPS, window_warmup_steps=DP_WARMUP_STEPS,
+         window_ms_per_step_by_rank=[w["seconds"] / w["steps"] * 1e3 for w in windows],
+         window_launches_by_rank=[w["launches"] for w in windows],
+         window_ranks_bit_equal=True, window_metrics_rank0=windows[0]["history"][-1],
+         spawn_s=spawn_s, nccl_version=nccl_version(),
+         nccl_world1=dict(backend=nccl["backend"], all_reduce=nccl["all_reduce"].tolist(),
+                          broadcast=nccl["broadcast"].tolist()),
+         torchrun="torch.distributed.run --standalone --nproc_per_node=1 -m imm_tpu_torch.cli.train "
+                  "--preset synthetic_best --steps 5: finished",
+         dryrun="dryrun_multichip(2) on the card: the same parameters on both ranks",
+         dryrun_s=dryrun_s)
+    return launches
+
+
+EXPORT_CHILD = r"""
+import json, sys
+import torch
+import imm_tpu_torch.ops  # registers the kernels' custom ops; no model code
+from imm_tpu_torch.bench import p50_p90, times_ms
+from imm_tpu_torch.ops.fused import landmark_bottleneck
+torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+d = sys.argv[1]
+inputs = torch.load(d + "/inputs.pt")
+outputs, report = {}, {}
+for name, args in inputs.items():
+    program = torch.export.load(d + "/" + name + ".pt2").module()
+    with torch.inference_mode():
+        landmark_bottleneck.launches = 0
+        outputs[name] = program(*args)
+        torch.cuda.synchronize()
+        launches = landmark_bottleneck.launches
+        p50, p90 = p50_p90(times_ms(lambda: program(*args), torch.device("cuda")))
+    report[name] = {"k1_launches": launches, "ms_p50": p50, "ms_p90": p90}
+report["models_imported"] = sorted(m for m in sys.modules if m.startswith("imm_tpu_torch.models"))
+torch.save(outputs, d + "/outputs.pt")
+print(json.dumps(report))
+"""
+
+
+def export_slice(dev, smi, serving):
+    """The serving programs exported on the card and loaded in a child that
+    imports ``imm_tpu_torch.ops`` and not the models; -> K1's launches in
+    the child's first calls."""
+    import io
+
+    from imm_tpu_torch.eval import export
+
+    work = SMOKE / "export"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    model, app, pose = serving["model"], serving["app"], serving["pose"]
+    s = model.config.image_size
+    t0 = time.perf_counter()
+    blobs = {"landmarker_b128": export.export_landmarker(model, BATCH, s),
+             "landmarker_b1": export.export_landmarker(model, 1, s),
+             "swap_b128": export.export_swap_generator(model, BATCH, s)}
+    export_s = time.perf_counter() - t0
+    graph_ops = {}
+    for name, blob in blobs.items():
+        (work / f"{name}.pt2").write_bytes(blob)
+        program = torch.export.load(io.BytesIO(blob))
+        graph_ops[name] = sorted({str(n.target) for n in program.graph.nodes if "imm_tpu" in str(n.target)})
+        check(graph_ops[name] == ["imm_tpu.bottleneck_fwd.default"], f"{name} holds {graph_ops[name]}")
+    pose1 = pose[:1].clone()
+    torch.save({"landmarker_b128": (pose,), "landmarker_b1": (pose1,), "swap_b128": (app, pose)},
+               work / "inputs.pt")
+    proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, str(work)], cwd=ROOT,
+                          capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"the export child failed: {proc.stderr[-3000:]}")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(report.pop("models_imported") == [], "the child imported the model code")
+    outputs = torch.load(work / "outputs.pt")
+    landmarks, swap = serving["landmarks"], serving["swap"]
+    errs = {"landmarker_b128": (outputs["landmarker_b128"] - landmarks(pose)).abs().max().item(),
+            "landmarker_b1": (outputs["landmarker_b1"] - landmarks(pose1)).abs().max().item(),
+            "swap_b128": (outputs["swap_b128"] - swap(app, pose)).abs().max().item()}
+    tols = {"landmarker_b128": TOL_KERNEL, "landmarker_b1": TOL_KERNEL, "swap_b128": serving["swap_tol"]}
+    for name in blobs:
+        check(report[name]["k1_launches"] > 0, f"{name}: K1 was not launched in the child")
+        check(errs[name] <= tols[name], f"{name}: the loaded program differs by {errs[name]}")
+    # the same forwards in this process, eager (``landmark_fn``, ``swap_fn``)
+    eager = {name: p50_p90(cuda_times(fn)) for name, fn in (
+        ("landmarker_b128", lambda: landmarks(pose)), ("landmarker_b1", lambda: landmarks(pose1)),
+        ("swap_b128", lambda: swap(app, pose)))}
+    emit("export", card=smi, export_s=export_s, pt2_mb={n: len(b) / 1e6 for n, b in blobs.items()},
+         graph_custom_ops=graph_ops, child_imports_models=False, max_abs_err=errs, atol=tols,
+         exported=report, eager={n: {"ms_p50": p[0], "ms_p90": p[1]} for n, p in eager.items()})
+    return sum(report[n]["k1_launches"] for n in blobs)
+
+
+def s2d_slice(dev, smi, serving):
+    """The space-to-depth entry conv (7x7, 3 -> 32, 128 px, B=128, s2d_block=2)
+    against the direct conv, in f32 and bf16, both timed; then the ``swap``
+    model with ``entry_s2d=2`` carrying the direct model's weights."""
+    import torch.nn.functional as F
+
+    from imm_tpu_torch.eval.export import landmark_fn
+    from imm_tpu_torch.eval.swap import swap_fn
+    from imm_tpu_torch.models.imm import IMM
+    from imm_tpu_torch.ops.s2dconv import s2d_conv_nchw
+
+    gen = torch.Generator(dev).manual_seed(13)
+    x = torch.rand((BATCH, 3, 128, 128), generator=gen, device=dev)
+    k = torch.randn((7, 7, 3, 32), generator=gen, device=dev) * (1.0 / 147) ** 0.5
+    direct = lambda xx, kk: F.conv2d(F.pad(xx, (3, 3, 3, 3)), kk.permute(3, 2, 0, 1))  # noqa: E731
+    f32_err = (s2d_conv_nchw(x, k, 2) - direct(x, k)).abs().max().item()
+    # float32 (TF32 off): the same products summed in another order
+    check(f32_err <= 1e-4, f"s2d conv differs from the direct conv by {f32_err} in f32")
+    xb, kb = x.bfloat16(), k.bfloat16()
+    yb_s, yb_d = s2d_conv_nchw(xb, kb, 2), direct(xb, kb)
+    # bf16: each output is rounded once from its f32 sum; two units of bf16
+    # at the output's magnitude
+    top = yb_d.abs().max().item()
+    bf16_tol = 2.0 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    bf16_err = (yb_s.float() - yb_d.float()).abs().max().item()
+    check(bf16_err <= bf16_tol, f"s2d conv differs from the direct conv by {bf16_err} in bf16")
+    t_s2d = p50_p90(cuda_times(lambda: s2d_conv_nchw(xb, kb, 2)))
+    t_direct = p50_p90(cuda_times(lambda: direct(xb, kb)))
+
+    # the swap preset with entry_s2d=2, the direct model's weights carried over
+    model = serving["model"]
+
+    def carried(src, cfg):
+        out = IMM(cfg).to(dev)
+        state = {}
+        for name, v in src.state_dict().items():
+            if cfg.entry_s2d and name.endswith("trunk.blocks.0.conv.weight"):
+                name, v = name.replace("conv.weight", "s2d_kernel"), v.permute(2, 3, 1, 0)
+            state[name] = v
+        out.load_state_dict(state, strict=True)
+        return out
+
+    cfg = model.config
+    m_s2d = carried(model, dataclasses.replace(cfg, entry_s2d=2))
+    app, pose = serving["app"], serving["pose"]
+    coords, swaps = landmark_fn(m_s2d)(pose), swap_fn(m_s2d)(app, pose)
+    check(bool(torch.isfinite(coords).all() and torch.isfinite(swaps).all())
+          and swaps.shape == serving["swaps"].shape, "s2d swap forward")
+    bf16_diff = {"coords": (coords - serving["coords"]).abs().max().item(),
+                 "swap": (swaps - serving["swaps"]).abs().max().item()}
+    # the same pair of models in float32 (TF32 off): one function
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    m_f, m_fs = carried(model, f32), carried(model, dataclasses.replace(f32, entry_s2d=2))
+    f32_diff = {"coords": (landmark_fn(m_fs)(pose) - landmark_fn(m_f)(pose)).abs().max().item(),
+                "swap": (swap_fn(m_fs)(app, pose) - swap_fn(m_f)(app, pose)).abs().max().item()}
+    check(f32_diff["coords"] <= 1e-4 and f32_diff["swap"] <= 1e-3, f"s2d model in f32: {f32_diff}")
+    emit("s2d", card=smi, conv="7x7, 3->32, 128 px, B=128", block=2, f32_max_abs_err=f32_err,
+         f32_atol=1e-4, bf16_max_abs_err=bf16_err, bf16_atol=bf16_tol,
+         s2d_ms_p50=t_s2d[0], s2d_ms_p90=t_s2d[1], direct_ms_p50=t_direct[0], direct_ms_p90=t_direct[1],
+         swap_entry_s2d_bf16_vs_direct=bf16_diff, swap_entry_s2d_f32_vs_direct=f32_diff,
+         f32_atol_coords=1e-4, f32_atol_swap=1e-3)
+
+
+DEVICE_INIT_CHILD = r"""
+import json, time
+t0 = time.perf_counter()
+import torch
+from imm_tpu_torch.utils import device_init
+from imm_tpu_torch.utils.device import get_device
+import_s = time.perf_counter() - t0
+armed, arm = [], device_init._call_with_timeout
+device_init._call_with_timeout = lambda fn, t, what: (armed.append(t), arm(fn, t, what))[1]
+before = torch.cuda.is_initialized()
+t0 = time.perf_counter()
+dev = get_device()
+init_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+torch.zeros(1, device=dev)
+torch.cuda.synchronize()
+first_s = time.perf_counter() - t0
+print(json.dumps(dict(import_s=import_s, initialized_before=before,
+                      initialized_after=torch.cuda.is_initialized(), watchdog_armed_s=armed,
+                      init_s=init_s, first_tensor_s=first_s)))
+"""
+
+
+def device_init_slice():
+    """A fresh process's first CUDA init through ``get_device``, with the
+    watchdog armed."""
+    proc = subprocess.run([sys.executable, "-c", DEVICE_INIT_CHILD], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    check(proc.returncode == 0, f"device_init child: {proc.stderr[-2000:]}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(not rec["initialized_before"] and rec["initialized_after"] and rec["watchdog_armed_s"] == [600],
+          f"device_init: {rec}")
+    emit("device_init", **rec)
+
+
+def bench_slice():
+    """``python -m imm_tpu_torch.bench`` in both modes, in this process and
+    with few calls: the entry point runs and its records are sound. Its
+    timing is the smoke's own (``times_ms``), whose full readings are the
+    ``serving`` and ``training`` phases'."""
+    import contextlib
+    import io
+
+    from imm_tpu_torch import bench
+
+    for args in (("--mode", "inference", "--steps", "10"), ("--mode", "train", "--steps", "5")):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            bench.main(list(args))
+        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        check(rec["device"]["platform"] == "gpu" and rec["value"] > 0, f"bench {args}: {rec}")
+        emit("bench", args=" ".join(args), **rec)
+
+
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("bottleneck_fwd", "imm_tpu_torch/csrc/bottleneck_fwd.cu", "imm_tpu/ops/fused.py:52"),
     ("bottleneck_bwd", "imm_tpu_torch/csrc/bottleneck_bwd.cu", "imm_tpu/ops/fused.py:111"),
@@ -1422,16 +1780,31 @@ def main() -> int:
         checkpoint_slice(dev)
     with timed("supervise"):
         supervise_slice()
+    # The last slice's phases: the op checks, data parallelism, the exported
+    # programs, space-to-depth, the bounded init and the bench.
+    with timed("custom_ops"):
+        custom_ops_slice(dev, smi)
+    with timed("data_parallel"):
+        dp_launches = data_parallel_slice(dev, smi)
+    with timed("export"):
+        export_k1_launches = export_slice(dev, smi, serving)
+    with timed("s2d"):
+        s2d_slice(dev, smi, serving)
+    with timed("device_init"):
+        device_init_slice()
+    with timed("bench"):
+        bench_slice()
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 3)
     emit("phase_seconds", **PHASE_SECONDS)
 
     # Launches on the main paths, each read right after its own run with the
     # counts set to 0 just before: serving (K1) plus training on on-device
-    # data, on image files and on temporal pairs (K1, K2, K3), and the
-    # warp-gradient path for K4.
-    launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k]
+    # data, on image files and on temporal pairs (K1, K2, K3), the two
+    # data-parallel ranks' window (K1, K2, K3), the exported programs in
+    # their child (K1), and the warp-gradient path for K4.
+    launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k] + dp_launches[k]
                 for k in train_launches}
-    launches["bottleneck_fwd"] += serving["launches"]
+    launches["bottleneck_fwd"] += serving["launches"] + export_k1_launches
     launches["warp_bwd"] = k4_launches
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on its path")

@@ -9,6 +9,12 @@ whole calls of ``train.steps_per_call`` steps). With ``--workdir`` the run
 saves checkpoints there and resumes from the latest one when started again.
 ``--supervise R`` runs the training as a child process and starts it again,
 up to R times, when it fails (the stall watchdog's abort included).
+
+On N cards of one host: ``torchrun --nproc_per_node=N -m
+imm_tpu_torch.cli.train --preset synthetic_best``. Each rank takes one card
+(``LOCAL_RANK``) and ``train.batch_size / N`` images a step; the ranks
+average their gradients over NCCL (``parallel.distributed``,
+``train/steps.py``). Rank 0 logs, evaluates and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -18,8 +24,11 @@ import logging
 import subprocess
 import sys
 
+import torch.distributed as dist
+
 from imm_tpu_torch.cli._common import add_config_args, resolve_config, setup_logging
 from imm_tpu_torch.experiment import build_experiment
+from imm_tpu_torch.parallel.distributed import initialize_multihost
 
 log = logging.getLogger("imm_tpu_torch")
 
@@ -83,16 +92,24 @@ def main(argv=None):
             raise SystemExit("--supervise requires --workdir (for resume)")
         raise SystemExit(_supervise(args.supervise, argv))
     config = resolve_config(args)
-    exp = build_experiment(config, device=args.device, total_steps=args.steps)
-    log.info(
-        "experiment %s: %d steps, batch %d x %d/call, device %s",
-        config.name, exp.trainer.total_steps, config.train.batch_size,
-        config.train.steps_per_call, exp.device,
-    )
-    state = exp.run()
-    log.info("finished at step %d", state.host_step)
-    for k, v in exp.eval_fn(state).items():
-        log.info("final %s = %.4f", k, v)
+    # the process group, before anything touches the device: a no-op
+    # without a launcher (one process)
+    formed = initialize_multihost(device=args.device)
+    try:
+        exp = build_experiment(config, device=args.device, total_steps=args.steps)
+        log.info(
+            "experiment %s: %d steps, batch %d x %d/call, device %s, mesh %s (rank %d)",
+            config.name, exp.trainer.total_steps, config.train.batch_size,
+            config.train.steps_per_call, exp.device, exp.mesh.shape, exp.mesh.rank,
+        )
+        state = exp.run()
+        log.info("finished at step %d", state.host_step)
+        if exp.mesh.rank == 0:  # the eval has no collective: rank 0 alone
+            for k, v in exp.eval_fn(state).items():
+                log.info("final %s = %.4f", k, v)
+    finally:
+        if formed:
+            dist.destroy_process_group()
     return state
 
 

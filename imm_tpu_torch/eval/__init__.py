@@ -1,4 +1,12 @@
-from imm_tpu_torch.eval.export import landmark_fn
+from imm_tpu_torch.eval.export import (
+    export_landmarker,
+    export_swap_generator,
+    landmark_fn,
+    load_landmarker,
+    load_landmarker_file,
+    load_swap_generator,
+    save_landmarker,
+)
 from imm_tpu_torch.eval.regression import (
     evaluate_landmarks,
     fit_landmark_regressor,
@@ -13,6 +21,12 @@ __all__ = [
     "landmark_error",
     "evaluate_landmarks",
     "landmark_fn",
+    "export_landmarker",
+    "load_landmarker",
+    "export_swap_generator",
+    "load_swap_generator",
+    "save_landmarker",
+    "load_landmarker_file",
     "pose_swap",
     "swap_fn",
 ]

@@ -7,8 +7,23 @@ where the JAX functions took ``params`` and ``batch_stats``.
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from imm_tpu_torch.models.imm import IMM
+
+
+class SwapForward(nn.Module):
+    """(appearance, pose) -> swap: the forward that ``swap_fn`` runs and
+    ``eval.export.export_swap_generator`` exports."""
+
+    def __init__(self, model: IMM):
+        super().__init__()
+        self.model = model
+
+    def forward(self, appearance: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
+        content = self.model.encode_content(appearance)
+        coords, _ = self.model.encode_pose(pose)
+        return self.model.generate(content, coords)
 
 
 def swap_fn(model: IMM):
@@ -18,12 +33,11 @@ def swap_fn(model: IMM):
     under ``torch.inference_mode()``. Images are NHWC (B, S, S, 3) in [0, 1]
     on the model's device; the result is (B, S, S, 3) float32."""
     model.eval()
+    forward = SwapForward(model)
 
     def fn(appearance: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            content = model.encode_content(appearance)
-            coords, _ = model.encode_pose(pose)
-            return model.generate(content, coords)
+            return forward(appearance, pose)
 
     return fn
 

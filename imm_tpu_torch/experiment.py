@@ -12,8 +12,15 @@ under ``data.root``), decoded on the device. With ``steps_per_call`` > 1 the
 JAX package stacks a window's host batches into one super-batch for
 ``lax.scan``; here step *i* of a window takes the *i*-th batch of the stream
 as it comes, the same batches in the same order, so no (window, B, S, S, 3)
-tensor is built. Data-parallel processes raise ``NotImplementedError``
-(ROADMAP.md, Queue 1 item 10).
+tensor is built.
+
+Data parallelism: when a process group of several ranks is up
+(``parallel.distributed.initialize_multihost``, e.g. under ``torchrun``),
+the default mesh spans it. Each rank then builds the same state (broadcast
+from rank 0), draws or loads ``batch / world`` images a step (file-backed:
+its interleaved shard of the files, from ``seed + rank``) and runs the
+averaging step of ``train/steps.py``; BatchNorm averages its statistics
+across the ranks (``axis_name='data'``).
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
 from imm_tpu_torch.eval.regression import evaluate_landmarks
 from imm_tpu_torch.losses.perceptual import ReconstructionLoss, n_loss_terms
 from imm_tpu_torch.parallel.distributed import process_shard_spec
+from imm_tpu_torch.parallel.mesh import Mesh, make_mesh, replicate
 from imm_tpu_torch.train.loop import Trainer, TrainerOptions
 from imm_tpu_torch.train.state import TrainState, create_train_state
 from imm_tpu_torch.train.steps import (
@@ -53,6 +61,7 @@ _VIZ_SEED = 1234
 class Experiment:
     config: ExperimentConfig
     device: torch.device
+    mesh: Mesh
     model: Any
     state: TrainState
     loss_fn: ReconstructionLoss | None
@@ -79,6 +88,9 @@ def build_experiment(
     """Wire a full experiment from config, on ``device`` (default: the GPU;
     raises without one unless ``device='cpu'``).
 
+    The mesh is the process group's (one process when none is up); the
+    world must divide ``train.batch_size``.
+
     ``restore=False`` starts fresh even if the workdir has checkpoints.
     ``inference_only=True`` builds the model, its state and the trainer's
     checkpoint access only (no loss, data, step or eval): for loading a
@@ -86,18 +98,28 @@ def build_experiment(
     """
     dev = get_device(device)
     batch = config.train.batch_size
+    mesh = make_mesh()
+    if batch % mesh.size:
+        raise ValueError(f"global batch {batch} not divisible by {mesh.size} ranks")
+    local_batch = batch // mesh.size
+    model_config = config.model
+    if mesh.size > 1 and model_config.norm == "batch":
+        # BatchNorm averages its statistics across the ranks
+        model_config = dataclasses.replace(model_config, axis_name="data")
     if inference_only:
         model, state = create_train_state(
-            config.train.seed, config.model, config.train, n_loss_terms(config.loss), device=dev
+            config.train.seed, model_config, config.train, n_loss_terms(config.loss), device=dev
         )
         trainer = Trainer(None, state, total_steps=0, batch_size=batch,
                           options=TrainerOptions(workdir=config.workdir or None))
-        return Experiment(config=config, device=dev, model=model, state=state, loss_fn=None,
-                          step_fn=None, eval_fn=None, trainer=trainer, restore=restore)
+        return Experiment(config=config, device=dev, mesh=mesh, model=model, state=state,
+                          loss_fn=None, step_fn=None, eval_fn=None, trainer=trainer,
+                          restore=restore)
     loss_fn = ReconstructionLoss(config.loss, device=dev)
     model, state = create_train_state(
-        config.train.seed, config.model, config.train, loss_fn.n_terms, device=dev
+        config.train.seed, model_config, config.train, loss_fn.n_terms, device=dev
     )
+    replicate(state, mesh)
     pair = PairSynthesizer(config.pair)
     scan = config.train.steps_per_call
     steps = total_steps if total_steps is not None else config.train.total_steps
@@ -120,7 +142,8 @@ def build_experiment(
                 return {"image_a": out["image_a"], "image_b": out["image_b"]}
 
         step_fn = make_synthetic_train_step(
-            model, loss_fn, config.train, pair, sample_batch, pair_mode=pair_mode, scan_steps=scan
+            model, loss_fn, config.train, pair, sample_batch, pair_mode=pair_mode,
+            scan_steps=scan, mesh=mesh,
         )
 
         @functools.cache
@@ -145,14 +168,9 @@ def build_experiment(
                 "data.host_pipeline='tfdata' supports tps pair mode only; "
                 "temporal pair sampling uses the threaded loader"
             )
-        if process_shard_spec() is not None:
-            # each process would train a model of its own on its shard of the
-            # files: the step has no all-reduce yet
-            raise NotImplementedError(
-                "several processes: data-parallel steps are not ported yet "
-                "(ROADMAP.md, Queue 1 item 10)"
-            )
-        step_fn = make_train_step(model, loss_fn, config.train, pair, pair_mode, scan_steps=scan)
+        step_fn = make_train_step(
+            model, loss_fn, config.train, pair, pair_mode, scan_steps=scan, mesh=mesh
+        )
         dataset = get_dataset(
             config.data.source,
             config.data.root,
@@ -160,13 +178,16 @@ def build_experiment(
             n_landmarks=config.model.n_landmarks,
             device=dev,
         )
-        seed = config.train.seed
+        # each process loads and decodes its interleaved shard of the files
+        # and feeds its share of the global batch
+        shard = process_shard_spec()
+        seed = config.train.seed + mesh.rank
         if pair_mode == "temporal":
-            raw = dataset.train_pair_batches(batch, seed=seed)
+            raw = dataset.train_pair_batches(local_batch, seed=seed, shard=shard)
         elif pipeline == "tfdata":
-            raw = dataset.tfdata_batches(batch, seed=seed)
+            raw = dataset.tfdata_batches(local_batch, seed=seed, shard=shard)
         else:
-            raw = dataset.train_batches(batch, seed=seed)
+            raw = dataset.train_batches(local_batch, seed=seed, shard=shard)
         # One batch a step, at most the prefetch depth ahead on the device.
         # The source is bounded to what the trainer, the one panel batch and
         # one slack pull can take, so the producer thread ends and frees its
@@ -240,7 +261,7 @@ def build_experiment(
         viz_fn=viz_fn if config.eval_every else None,
     )
     return Experiment(
-        config=config, device=dev, model=model, state=state, loss_fn=loss_fn,
+        config=config, device=dev, mesh=mesh, model=model, state=state, loss_fn=loss_fn,
         step_fn=step_fn, eval_fn=eval_fn, trainer=trainer, restore=restore, batches=batches,
     )
 

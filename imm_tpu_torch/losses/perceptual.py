@@ -33,6 +33,7 @@ from imm_tpu_torch.models.vgg import (
     load_vgg16_params,
     random_vgg16_params,
 )
+from imm_tpu_torch.parallel.mesh import all_reduce_mean_flat
 from imm_tpu_torch.utils.config import PerceptualLossConfig
 from imm_tpu_torch.utils.device import get_device
 
@@ -143,15 +144,21 @@ class ReconstructionLoss:
             terms.append(torch.mean(torch.square(f[:b] - f[b:])))
         return terms
 
-    def __call__(self, recon, target, ema, step: int = 1):
+    def __call__(self, recon, target, ema, step: int = 1, mesh=None):
         """-> (total_loss, new_ema, per-term metrics).
 
         ``step`` (a host integer) lets the first optimization step seed the
         EMA from the live terms instead of the ones-init, so early gradient
         scales are sane; the seeded EMA is decayed in the same call.
+
+        ``mesh`` (``parallel.mesh.Mesh``, the JAX package's ``axis_name``):
+        the raw terms are averaged across its ranks before the EMA and the
+        normaliser, so ``new_ema`` and the metrics are global-batch values,
+        the same on every rank. The gradient flows through this rank's own
+        terms; averaging the ranks' gradients then gives the global one.
         """
         raw = torch.stack(self._raw_terms(recon, target))
-        live = raw.detach()
+        (live,) = all_reduce_mean_flat([raw.detach()], mesh)
         if step == 0:
             ema = live
         norm = ema.detach() + 1e-8

@@ -7,7 +7,9 @@ holds it, e.g. ``params/decoder/to_rgb/kernel``). Mapping:
 - conv ``kernel`` (kh, kw, cin, cout) -> ``weight`` (cout, cin, kh, kw);
 - conv ``bias`` as it is (``heatmap_head``, ``to_rgb``, norm='none' blocks);
 - ``BatchNorm_0`` / ``GroupNorm_0`` ``scale``/``bias`` -> ``weight``/``bias``;
-- ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``.
+- ``batch_stats`` ``mean``/``var`` -> ``running_mean``/``running_var``;
+- a space-to-depth block's ``s2d_kernel`` (kh, kw, cin, cout) and
+  ``s2d_bias`` as they are, under the block's own name.
 
 Module paths: ``content_encoder/trunk/ConvBlock_{i}`` ->
 ``content_encoder.trunk.blocks.{i}``, the same under ``pose_encoder``,
@@ -34,6 +36,8 @@ _LEAF = {
     ("params", "scale"): "weight",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
+    ("params", "s2d_kernel"): "s2d_kernel",
+    ("params", "s2d_bias"): "s2d_bias",
 }
 
 
@@ -59,10 +63,6 @@ def _module_path(parts: list[str]) -> str:
             out.append("conv")
         elif p in ("BatchNorm_0", "GroupNorm_0"):
             out.append("norm")
-        elif p in ("s2d_kernel", "s2d_bias"):
-            raise NotImplementedError(
-                "space-to-depth entry convs are not ported yet: ROADMAP.md, Queue 1 item 12"
-            )
         else:
             out.append(p)
     return ".".join(out)
@@ -87,7 +87,7 @@ def from_flax(variables) -> dict[str, torch.Tensor]:
             if value.ndim != 4:
                 raise ValueError(f"{key}: expected a (kh, kw, cin, cout) kernel, got {value.shape}")
             value = value.transpose(3, 2, 0, 1)
-        name = f"{_module_path(parts[:-1])}.{leaf}"
+        name = ".".join(filter(None, (_module_path(parts[:-1]), leaf)))
         state[name] = torch.tensor(value, dtype=torch.float32)
     return state
 
@@ -139,6 +139,8 @@ def to_flax(state: dict, norm: str = "batch") -> dict:
             collection, key = "batch_stats", leaf[len("running_"):]
         elif under_norm:
             collection, key = "params", {"weight": "scale", "bias": "bias"}[leaf]
+        elif leaf in ("s2d_kernel", "s2d_bias"):
+            collection, key = "params", leaf
         elif leaf == "weight":
             collection, key, value = "params", "kernel", value.transpose(2, 3, 1, 0)
         else:

@@ -21,6 +21,7 @@ from torch import nn
 
 from imm_tpu_torch.models.nets import (
     ContentEncoder,
+    ConvBlock,
     Decoder,
     FlaxBatchNorm,
     FlaxGroupNorm,
@@ -47,8 +48,11 @@ class IMMConfig:
     norm: str = "batch"
     compute_dtype: str = "float32"
     bottleneck_impl: str = "auto"  # 'xla' | 'pallas' | 'auto'
-    entry_s2d: int = 0  # space-to-depth entry conv: not ported (raises if > 0)
-    axis_name: str | None = None  # kept for config parity; unused by the port
+    entry_s2d: int = 0  # space-to-depth block of the entry conv (0 = direct)
+    # BatchNorm's data-parallel axis: 'data' takes flax's E[x^2] - E[x]^2
+    # variance and averages the statistics across the ranks of the process
+    # group (models/nets.py:FlaxBatchNorm)
+    axis_name: str | None = None
 
     def __post_init__(self):
         h = self.bottleneck_hw[0]
@@ -97,12 +101,14 @@ class IMM(nn.Module):
     def __init__(self, config: IMMConfig = IMMConfig()):
         super().__init__()
         c = self.config = config
-        self.content_encoder = ContentEncoder(c.filters, c.strides, c.norm, c.dtype, c.entry_s2d)
+        self.content_encoder = ContentEncoder(
+            c.filters, c.strides, c.norm, c.dtype, c.entry_s2d, c.axis_name
+        )
         self.pose_encoder = PoseEncoder(
-            c.n_landmarks, c.filters, c.strides, c.norm, c.dtype, c.entry_s2d
+            c.n_landmarks, c.filters, c.strides, c.norm, c.dtype, c.entry_s2d, c.axis_name
         )
         self.decoder = Decoder(
-            c.filters[-1] + c.n_landmarks, c.decoder_filters, 3, c.norm, c.dtype
+            c.filters[-1] + c.n_landmarks, c.decoder_filters, 3, c.norm, c.dtype, c.axis_name
         )
 
     def _bottleneck(self, heatmaps_nchw):
@@ -159,6 +165,6 @@ def init_model(config: IMMConfig, seed: int = 0, device=None) -> IMM:
     model = IMM(config)
     gen = torch.Generator().manual_seed(seed)
     for m in model.modules():
-        if isinstance(m, (SameConv2d, FlaxBatchNorm, FlaxGroupNorm)):
+        if isinstance(m, (ConvBlock, SameConv2d, FlaxBatchNorm, FlaxGroupNorm)):
             m.reset_parameters(generator=gen)
     return model.to(get_device(device))

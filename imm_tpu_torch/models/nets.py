@@ -29,6 +29,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imm_tpu_torch.ops.s2dconv import s2d_conv_nchw
+from imm_tpu_torch.parallel.mesh import all_reduce_mean, axis_group
+
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
 
@@ -40,9 +43,11 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None):
-    """flax ``lecun_normal``: truncated normal, variance 1 / fan_in."""
-    fan_in = weight[0].numel()
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None,
+                  fan_in: int | None = None):
+    """flax ``lecun_normal``: truncated normal, variance 1 / fan_in (default:
+    the size of one output channel's slice, ``weight[0]``, as for OIHW)."""
+    fan_in = weight[0].numel() if fan_in is None else fan_in
     std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
@@ -76,11 +81,22 @@ class FlaxBatchNorm(nn.Module):
     ``running_mean``, ``running_var``). In train mode the running statistics
     are updated in place, unless ``update_stats`` is off
     (``batch_stats_frozen``): the pass then still normalises with its batch's
-    statistics and leaves the buffers alone."""
+    statistics and leaves the buffers alone.
 
-    def __init__(self, features, momentum=0.9, eps=1e-5, dtype=torch.float32):
+    ``axis_name`` (flax's ``BatchNorm(axis_name=...)``): when set, train
+    mode takes the batch mean and the mean of squares and the variance as
+    ``E[x^2] - E[x]^2``, clipped at 0, as flax does; when a process group of
+    several ranks is up, the two means are averaged across the ranks
+    (``parallel.mesh``, one all-reduce a layer, differentiable: its backward
+    all-reduces the cotangents). So every rank normalises with the global
+    batch's statistics and keeps the same running statistics, and one
+    process with ``axis_name`` computes what the ranks compute. Without
+    ``axis_name`` the variance is the two-pass one."""
+
+    def __init__(self, features, momentum=0.9, eps=1e-5, dtype=torch.float32, axis_name=None):
         super().__init__()
         self.momentum, self.eps, self.compute_dtype = momentum, eps, dtype
+        self.axis_name = axis_name
         self.update_stats = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
@@ -100,8 +116,13 @@ class FlaxBatchNorm(nn.Module):
                 False, 0.0, self.eps,
             ).to(self.compute_dtype)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = xf.var(dim=(0, 2, 3), unbiased=False)
+        if self.axis_name is None:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = xf.var(dim=(0, 2, 3), unbiased=False)
+        else:
+            local = torch.cat([xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))])
+            mean, mean_sq = all_reduce_mean(local, axis_group(self.axis_name)).chunk(2)
+            var = torch.clamp(mean_sq - mean.square(), min=0.0)
         if self.update_stats:
             with torch.no_grad():
                 self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
@@ -145,28 +166,53 @@ class FlaxGroupNorm(nn.GroupNorm):
 
 
 class ConvBlock(nn.Module):
-    """Conv -> norm -> ReLU. ``norm``: 'batch' | 'group' | 'none'."""
+    """Conv -> norm -> ReLU. ``norm``: 'batch' | 'group' | 'none'.
+
+    ``s2d_block`` > 0 runs the (stride-1) conv through the exact
+    space-to-depth reformulation (``ops/s2dconv.py``): the same function on
+    another schedule. Its parameters are flax's: ``s2d_kernel`` in the
+    canonical (kh, kw, cin, cout) shape, and ``s2d_bias`` under
+    ``norm == 'none'``."""
 
     def __init__(self, cin, features, kernel=3, stride=1, norm="batch",
-                 dtype=torch.float32, s2d_block=0):
+                 dtype=torch.float32, s2d_block=0, axis_name=None):
         super().__init__()
-        if s2d_block > 0:
-            raise NotImplementedError(
-                "s2d_block > 0 (the space-to-depth entry conv, ops/s2dconv.py) "
-                "is not ported yet: ROADMAP.md, Queue 1 item 12"
-            )
         if norm not in ("batch", "group", "none"):
             raise ValueError(f"unknown norm: {norm!r}")
-        self.conv = SameConv2d(cin, features, kernel, stride, bias=norm == "none", dtype=dtype)
+        self.s2d_block, self.compute_dtype = s2d_block, dtype
+        if s2d_block > 0:
+            if stride != 1:
+                raise ValueError("s2d_block applies to stride-1 convs only")
+            self.conv = None
+            self.s2d_kernel = nn.Parameter(torch.empty(kernel, kernel, cin, features))
+            self.s2d_bias = nn.Parameter(torch.zeros(features)) if norm == "none" else None
+            self.reset_parameters()
+        else:
+            self.conv = SameConv2d(cin, features, kernel, stride, bias=norm == "none", dtype=dtype)
         if norm == "batch":
-            self.norm = FlaxBatchNorm(features, dtype=dtype)
+            self.norm = FlaxBatchNorm(features, dtype=dtype, axis_name=axis_name)
         elif norm == "group":
             self.norm = FlaxGroupNorm(features, dtype=dtype)
         else:
             self.norm = None
 
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """The space-to-depth kernel's initialiser; the direct conv and the
+        norm reset their own parameters."""
+        if self.s2d_block > 0:
+            kh, kw, cin, _ = self.s2d_kernel.shape
+            lecun_normal_(self.s2d_kernel, generator, fan_in=kh * kw * cin)
+            if self.s2d_bias is not None:
+                nn.init.zeros_(self.s2d_bias)
+
     def forward(self, x):
-        x = self.conv(x)
+        if self.conv is not None:
+            x = self.conv(x)
+        else:
+            dt = self.compute_dtype
+            x = s2d_conv_nchw(x.to(dt), self.s2d_kernel.to(dt), self.s2d_block)
+            if self.s2d_bias is not None:
+                x = x + self.s2d_bias.to(dt)[:, None, None]
         if self.norm is not None:
             x = self.norm(x)
         return F.relu(x)
@@ -177,12 +223,19 @@ class EncoderTrunk(nn.Module):
 
     def __init__(self, filters: Sequence[int] = (32, 32, 64, 64, 128, 128, 256, 256),
                  strides: Sequence[int] = (1, 1, 2, 1, 2, 1, 2, 1), first_kernel=7,
-                 norm="batch", dtype=torch.float32, entry_s2d=0, in_channels=3):
+                 norm="batch", dtype=torch.float32, entry_s2d=0, in_channels=3, axis_name=None):
         super().__init__()
+        if entry_s2d > 0 and strides[0] != 1:
+            raise ValueError(
+                "entry_s2d reformulates the stride-1 entry conv; this trunk's "
+                f"first stride is {strides[0]}"
+            )
         blocks, cin = [], in_channels
         for i, (f, s) in enumerate(zip(filters, strides)):
             k = first_kernel if i == 0 else 3
-            blocks.append(ConvBlock(cin, f, k, s, norm, dtype, entry_s2d if i == 0 else 0))
+            blocks.append(
+                ConvBlock(cin, f, k, s, norm, dtype, entry_s2d if i == 0 else 0, axis_name)
+            )
             cin = f
         self.blocks = nn.Sequential(*blocks)
         self.out_channels = cin
@@ -197,9 +250,9 @@ class ContentEncoder(nn.Module):
 
     def __init__(self, filters=(32, 32, 64, 64, 128, 128, 256, 256),
                  strides=(1, 1, 2, 1, 2, 1, 2, 1), norm="batch", dtype=torch.float32,
-                 entry_s2d=0):
+                 entry_s2d=0, axis_name=None):
         super().__init__()
-        self.trunk = EncoderTrunk(filters, strides, 7, norm, dtype, entry_s2d)
+        self.trunk = EncoderTrunk(filters, strides, 7, norm, dtype, entry_s2d, axis_name=axis_name)
 
     def forward(self, x):
         return self.trunk(x)
@@ -210,9 +263,9 @@ class PoseEncoder(nn.Module):
 
     def __init__(self, n_landmarks=10, filters=(32, 32, 64, 64, 128, 128, 256, 256),
                  strides=(1, 1, 2, 1, 2, 1, 2, 1), norm="batch", dtype=torch.float32,
-                 entry_s2d=0):
+                 entry_s2d=0, axis_name=None):
         super().__init__()
-        self.trunk = EncoderTrunk(filters, strides, 7, norm, dtype, entry_s2d)
+        self.trunk = EncoderTrunk(filters, strides, 7, norm, dtype, entry_s2d, axis_name=axis_name)
         self.heatmap_head = SameConv2d(self.trunk.out_channels, n_landmarks, 1, dtype=dtype)
 
     def forward(self, x):
@@ -231,11 +284,12 @@ class Decoder(nn.Module):
     halving widths, then a final linear conv to ``out_channels``."""
 
     def __init__(self, in_channels, filters: Sequence[int] = (256, 128, 64, 32),
-                 out_channels=3, norm="batch", dtype=torch.float32):
+                 out_channels=3, norm="batch", dtype=torch.float32, axis_name=None):
         super().__init__()
         blocks, cin = [], in_channels
         for f in filters:
-            blocks += [ConvBlock(cin, f, 3, 1, norm, dtype), ConvBlock(f, f, 3, 1, norm, dtype)]
+            blocks += [ConvBlock(cin, f, 3, 1, norm, dtype, axis_name=axis_name),
+                       ConvBlock(f, f, 3, 1, norm, dtype, axis_name=axis_name)]
             cin = f
         self.blocks = nn.ModuleList(blocks)
         self.to_rgb = SameConv2d(cin, out_channels, 3, dtype=dtype)

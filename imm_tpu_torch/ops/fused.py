@@ -5,13 +5,18 @@ function:
 
 - the plain PyTorch version, ``_bottleneck_reference``: ``ops.coords`` then
   ``ops.gauss`` (any render mode, any device), differentiated by autograd;
-- two CUDA kernels written by hand for Hopper behind one
-  ``torch.autograd.Function``, both one block to an image, one warp to a
-  landmark and all landmarks at once: the forward ``csrc/bottleneck_fwd.cu``
-  reads each heatmap from device memory once and writes coords and the 'rot'
-  maps in one launch; the backward ``csrc/bottleneck_bwd.cu`` keeps the
-  heatmaps alone as its residual, recomputes the softmaxes, coords and maps
-  in shared memory and writes d(heatmaps) in one launch.
+- two CUDA kernels written by hand for Hopper, both one block to an image,
+  one warp to a landmark and all landmarks at once: the forward
+  ``csrc/bottleneck_fwd.cu`` reads each heatmap from device memory once and
+  writes coords and the 'rot' maps in one launch; the backward
+  ``csrc/bottleneck_bwd.cu`` keeps the heatmaps alone as its residual,
+  recomputes the softmaxes, coords and maps in shared memory and writes
+  d(heatmaps) in one launch.
+
+The kernels are the custom ops ``imm_tpu::bottleneck_fwd`` and
+``imm_tpu::bottleneck_bwd`` (``torch.library``), the forward's autograd wired
+to the backward, so ``torch.export`` keeps them in a traced program. Both
+ops are registered for CUDA only: a CPU tensor has no kernel to run.
 
 ``impl='auto'`` takes the kernels for a CUDA tensor in mode 'rot' and the
 plain version for a CPU tensor or another mode. ``impl='pallas'`` (the JAX
@@ -22,6 +27,7 @@ package's name, kept so one config drives both packages) means the kernels;
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from imm_tpu_torch.ops import _build
 from imm_tpu_torch.ops.coords import marginal_softmax_coords
@@ -73,8 +79,6 @@ def _launch_bwd(heatmaps, dcoords, dmaps, out_hw, inv_std, temperature):
     plane, plane_out = (h * (w | 1)) | 1, 0 if dmaps is None else (oh * ow) | 1
     _check_smem(heatmaps.shape, 4 * k * (plane + plane_out + h + w))
     # a cotangent may arrive expanded, strided or in another dtype
-    if dcoords is None:
-        dcoords = torch.zeros((b, k, 2), dtype=torch.float32, device=heatmaps.device)
     dcoords = dcoords.to(torch.float32).contiguous()
     if dmaps is not None:
         dmaps = dmaps.to(torch.float32).contiguous()
@@ -94,24 +98,56 @@ def _launch_bwd(heatmaps, dcoords, dmaps, out_hw, inv_std, temperature):
     return dheat
 
 
-class _BottleneckCuda(torch.autograd.Function):
-    """Forward ``bottleneck_fwd``, backward ``bottleneck_bwd``; the residual
-    is the heatmaps alone."""
+@torch.library.custom_op("imm_tpu::bottleneck_fwd", mutates_args=(), device_types="cuda")
+def bottleneck_fwd(
+    heatmaps: Tensor, out_h: int, out_w: int, inv_std: float, temperature: float
+) -> tuple[Tensor, Tensor]:
+    """K1: contiguous f32 (B, H, W, K) heatmaps -> coords (B, K, 2) and
+    'rot' maps (B, out_h, out_w, K)."""
+    return _launch_fwd(heatmaps, (out_h, out_w), inv_std, temperature)
 
-    @staticmethod
-    def forward(ctx, heatmaps, out_hw, inv_std, temperature):
-        ctx.save_for_backward(heatmaps)
-        ctx.args = (out_hw, inv_std, temperature)
-        # an unused output's cotangent stays None instead of a zero tensor
-        ctx.set_materialize_grads(False)
-        return _launch_fwd(heatmaps, out_hw, inv_std, temperature)
 
-    @staticmethod
-    def backward(ctx, dcoords, dmaps):
-        (heatmaps,) = ctx.saved_tensors
-        if dcoords is None and dmaps is None:
-            return None, None, None, None
-        return _launch_bwd(heatmaps, dcoords, dmaps, *ctx.args), None, None, None
+@bottleneck_fwd.register_fake
+def _(heatmaps, out_h, out_w, inv_std, temperature):
+    b, _, _, k = heatmaps.shape
+    return heatmaps.new_empty((b, k, 2)), heatmaps.new_empty((b, out_h, out_w, k))
+
+
+@torch.library.custom_op("imm_tpu::bottleneck_bwd", mutates_args=(), device_types="cuda")
+def bottleneck_bwd(
+    heatmaps: Tensor, dcoords: Tensor, dmaps: Tensor | None, out_h: int, out_w: int,
+    inv_std: float, temperature: float,
+) -> Tensor:
+    """K2: d(heatmaps) from the heatmaps and the cotangents of K1's outputs;
+    ``dmaps=None`` skips the render term."""
+    return _launch_bwd(heatmaps, dcoords, dmaps, (out_h, out_w), inv_std, temperature)
+
+
+@bottleneck_bwd.register_fake
+def _(heatmaps, dcoords, dmaps, out_h, out_w, inv_std, temperature):
+    return torch.empty_like(heatmaps)
+
+
+def _fwd_setup(ctx, inputs, output):
+    heatmaps, *args = inputs
+    ctx.save_for_backward(heatmaps)  # the residual is the heatmaps alone
+    ctx.args = args
+    # an unused output's cotangent stays None instead of a zero tensor, so
+    # K2 skips the render term when the maps went unused
+    ctx.set_materialize_grads(False)
+
+
+def _fwd_backward(ctx, dcoords, dmaps):
+    (heatmaps,) = ctx.saved_tensors
+    if dcoords is None and dmaps is None:
+        return None, None, None, None, None
+    if dcoords is None:
+        b, _, _, k = heatmaps.shape
+        dcoords = heatmaps.new_zeros((b, k, 2))
+    return bottleneck_bwd(heatmaps, dcoords, dmaps, *ctx.args), None, None, None, None
+
+
+bottleneck_fwd.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def _bottleneck_cuda(heatmaps, out_hw, inv_std, temperature):
@@ -123,8 +159,8 @@ def _bottleneck_cuda(heatmaps, out_hw, inv_std, temperature):
         raise ValueError(f"expected (B, H, W, K) heatmaps, got {tuple(heatmaps.shape)}")
     if not heatmaps.is_contiguous():
         raise ValueError("the bottleneck kernel takes contiguous (B, H, W, K) heatmaps")
-    out_hw = tuple(int(s) for s in out_hw)
-    return _BottleneckCuda.apply(heatmaps, out_hw, float(inv_std), float(temperature))
+    oh, ow = (int(s) for s in out_hw)
+    return bottleneck_fwd(heatmaps, oh, ow, float(inv_std), float(temperature))
 
 
 def landmark_bottleneck(

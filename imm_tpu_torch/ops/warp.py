@@ -1,4 +1,6 @@
-"""The bilinear warp as two CUDA kernels behind one ``autograd.Function``.
+"""The bilinear warp as two CUDA kernels, the custom ops
+``imm_tpu::warp_fwd`` and ``imm_tpu::warp_bwd`` (``torch.library``, CUDA
+only), the forward's autograd wired to the backward.
 
 The counterpart of ``imm_tpu.ops.warp_pallas``: ``warp_bilinear`` has the
 semantics and signature of ``ops.image.bilinear_sample`` (its plain PyTorch
@@ -27,6 +29,7 @@ A CPU tensor never reaches a kernel: ``warp_bilinear`` raises on one, and
 from __future__ import annotations
 
 import torch
+from torch import Tensor
 
 from imm_tpu_torch.ops import _build
 from imm_tpu_torch.ops.image import clip_gradient_mask, pixel_coords
@@ -120,25 +123,52 @@ def _launch_bwd(images, grid, cotangent, footprint_floats=BWD_FOOTPRINT_FLOATS,
     return d_images, d_fy, d_fx
 
 
-class _WarpCuda(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, images, grid):
-        ctx.save_for_backward(images, grid)
-        return _launch_fwd(images, grid)
+@torch.library.custom_op("imm_tpu::warp_fwd", mutates_args=(), device_types="cuda")
+def warp_fwd(images: Tensor, grid: Tensor) -> Tensor:
+    """K3: contiguous (B, H, W, C) f32 or bf16 images at a contiguous f32
+    (B, Ho, Wo, 2) grid -> (B, Ho, Wo, C) in the images' dtype."""
+    return _launch_fwd(images, grid)
 
-    @staticmethod
-    def backward(ctx, cotangent):
-        images, grid = ctx.saved_tensors
-        _, h, w, _ = images.shape
-        cotangent = cotangent.to(images.dtype).contiguous()
-        d_images, d_fy, d_fx = _launch_bwd(images, grid, cotangent)
-        d_grid = None
-        if ctx.needs_input_grad[1]:
-            fy_raw, fx_raw = pixel_coords(grid, h, w)
-            dgy = d_fy * clip_gradient_mask(fy_raw, 0.0, float(h - 1)) * (0.5 * (h - 1))
-            dgx = d_fx * clip_gradient_mask(fx_raw, 0.0, float(w - 1)) * (0.5 * (w - 1))
-            d_grid = torch.stack([dgy, dgx], dim=-1)
-        return d_images.to(images.dtype), d_grid
+
+@warp_fwd.register_fake
+def _(images, grid):
+    b, ho, wo, _ = grid.shape
+    return images.new_empty((b, ho, wo, images.shape[-1]))
+
+
+@torch.library.custom_op("imm_tpu::warp_bwd", mutates_args=(), device_types="cuda")
+def warp_bwd(images: Tensor, grid: Tensor, cotangent: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """K4 on the training path's arguments: -> (d_images f32, d_fy, d_fx),
+    the last two the cotangents of the clipped pixel coordinates."""
+    return _launch_bwd(images, grid, cotangent)
+
+
+@warp_bwd.register_fake
+def _(images, grid, cotangent):
+    b, ho, wo, _ = grid.shape
+    d_fy = grid.new_empty((b, ho, wo), dtype=torch.float32)
+    return images.new_empty(images.shape, dtype=torch.float32), d_fy, torch.empty_like(d_fy)
+
+
+def _fwd_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _fwd_backward(ctx, cotangent):
+    images, grid = ctx.saved_tensors
+    _, h, w, _ = images.shape
+    cotangent = cotangent.to(images.dtype).contiguous()
+    d_images, d_fy, d_fx = warp_bwd(images, grid, cotangent)
+    d_grid = None
+    if ctx.needs_input_grad[1]:
+        fy_raw, fx_raw = pixel_coords(grid, h, w)
+        dgy = d_fy * clip_gradient_mask(fy_raw, 0.0, float(h - 1)) * (0.5 * (h - 1))
+        dgx = d_fx * clip_gradient_mask(fx_raw, 0.0, float(w - 1)) * (0.5 * (w - 1))
+        d_grid = torch.stack([dgy, dgx], dim=-1)
+    return d_images.to(images.dtype), d_grid
+
+
+warp_fwd.register_autograd(_fwd_backward, setup_context=_fwd_setup)
 
 
 def warp_bilinear(images: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
@@ -150,7 +180,7 @@ def warp_bilinear(images: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     ``warp_bilinear.bwd_launches`` the backward kernel's.
     """
     _check(images, grid)
-    return _WarpCuda.apply(images.contiguous(), grid.to(torch.float32).contiguous())
+    return warp_fwd(images.contiguous(), grid.to(torch.float32).contiguous())
 
 
 warp_bilinear.launches = 0

@@ -22,6 +22,13 @@ The random stream restarts from ``seed`` whenever a ``Trainer`` is built, as
 the JAX package's key does: a resumed run draws other batches than an
 uninterrupted one would have from the same step on. The generator is not
 part of a checkpoint.
+
+In a process group of several ranks (data parallelism) each rank runs its
+own ``Trainer``: its generator's seed has the rank folded in (rank 0 keeps
+``seed``), only rank 0 writes checkpoints, logs, panels, TensorBoard and
+runs the eval (which has no collective, so no rank waits on it for long),
+every rank waits at a barrier after a save and every rank restores. The
+stall watchdog is each rank's own.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from imm_tpu_torch.parallel.mesh import make_mesh, rank_seed
 from imm_tpu_torch.train.state import flatten_state, load_flat_state
 from imm_tpu_torch.utils.viz import to_uint8, write_png
 
@@ -105,7 +114,8 @@ class Trainer:
         self.steps_per_call = steps_per_call
         self.batches = batches
         self.options = options
-        self.gen = torch.Generator(state.step.device).manual_seed(seed)
+        self.mesh = make_mesh()
+        self.gen = torch.Generator(state.step.device).manual_seed(rank_seed(seed, self.mesh.rank))
         self.eval_fn = eval_fn
         self.eval_every = eval_every
         self.viz_fn = viz_fn
@@ -119,7 +129,7 @@ class Trainer:
         if options.workdir:
             self._checkpoint_dir = os.path.join(os.path.abspath(options.workdir), "checkpoints")
             os.makedirs(self._checkpoint_dir, exist_ok=True)
-            if options.tensorboard:
+            if options.tensorboard and self.mesh.rank == 0:
                 self._init_tensorboard()
         if options.stall_timeout_s > 0:
             self._start_watchdog()
@@ -198,12 +208,20 @@ class Trainer:
         newest ``keep_checkpoints``. The write is synchronous whatever
         ``wait`` says (the argument keeps the JAX package's signature): it
         returns once the file is in place. A step already saved is not
-        written again."""
+        written again. With several ranks, rank 0 writes and every rank
+        returns once it has."""
         if self._checkpoint_dir is None:
             return
         step = self.state.host_step
         if step == self._saved_step:
             return
+        if self.mesh.rank == 0:
+            self._write(step)
+        self._saved_step = step
+        if self.mesh.size > 1:
+            dist.barrier(group=self.mesh.group)
+
+    def _write(self, step: int):
         step_dir = os.path.join(self._checkpoint_dir, str(step))
         os.makedirs(step_dir, exist_ok=True)
         tmp = os.path.join(step_dir, CHECKPOINT_FILE + ".tmp")
@@ -217,7 +235,6 @@ class Trainer:
             os.fsync(fd)  # the rename itself survives a crash of the host
         finally:
             os.close(fd)
-        self._saved_step = step
         for old in checkpoint_steps(self._checkpoint_dir)[: -self.options.keep_checkpoints]:
             shutil.rmtree(os.path.join(self._checkpoint_dir, str(old)))
 
@@ -233,6 +250,8 @@ class Trainer:
 
     def _log(self, step: int, metrics: dict[str, float]):
         self.history.append({"step": step, **metrics})
+        if self.mesh.rank != 0:
+            return
         parts = " ".join(f"{k}={v:.5g}" for k, v in sorted(metrics.items()))
         log.info("step %d %s", step, parts)
         if self._writer is not None:
@@ -296,6 +315,7 @@ class Trainer:
                 self.eval_fn is not None
                 and self.eval_every > 0
                 and step % self.eval_every < self.steps_per_call
+                and self.mesh.rank == 0
             ):
                 ev = self.eval_fn(state)
                 self._log(step, {f"eval/{k}": v for k, v in ev.items()})

@@ -10,6 +10,15 @@ tensors on the device; nothing in a step reads a tensor back to the host.
 optimizer steps per call, metrics averaged by ``_scan_mean``. Here it is a
 plain Python loop; there is no dispatch cost to amortize as there was through
 ``lax.scan``.
+
+Data parallelism (``mesh`` of more than one rank, ``parallel.mesh``): every
+rank runs the step on its share of the batch and averages what the JAX
+step ``pmean``s under ``shard_map`` — the loss terms (in the loss and here),
+BatchNorm's statistics (in the model, whose config carries
+``axis_name='data'``) and the gradients, as one flat buffer after
+``torch.autograd.grad``. The model is not wrapped in DDP: its reducer syncs
+only ``.grad``, which this step never fills. Every rank then applies the
+same update to the same state.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from imm_tpu_torch.models.imm import IMM
 from imm_tpu_torch.models.nets import batch_stats_frozen
 from imm_tpu_torch.ops.coords import marginal_distributions
 from imm_tpu_torch.ops.tps import tps_transform_points
+from imm_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_flat
 from imm_tpu_torch.train.state import Optimizer, TrainState, make_optimizer
 from imm_tpu_torch.utils.config import TrainConfig
 
@@ -100,7 +110,7 @@ def _single_step(
     source: torch.Tensor,
     target: torch.Tensor,
     nan_guard: bool = False,
-    axis_name: str | None = None,
+    mesh: Mesh | None = None,
     equi: tuple | None = None,
     sep: tuple | None = None,
     ent: tuple | None = None,
@@ -108,6 +118,12 @@ def _single_step(
 ) -> tuple[TrainState, Metrics]:
     """One optimizer update given an already-synthesized (source, target).
     Updates ``state`` (and ``model``, which it holds) in place.
+
+    ``mesh``: the data-parallel group (the JAX package's ``axis_name``):
+    the loss's raw terms and the equi, sep and ent terms are averaged across
+    its ranks for the EMA and the metrics, and the gradients, with the total
+    loss, through one flat all-reduce. The NaN guard reads the averaged loss
+    and gradient, so every rank skips the same steps.
 
     ``equi``: optional ``(view, params_v, params_t, n_grid, weight)`` — the
     equivariance extension: run the pose encoder on an auxiliary ``view``
@@ -125,17 +141,13 @@ def _single_step(
     BatchNorm statistics are all gated on one device-side flag — and reports
     ``nonfinite_step`` = 1 with its other metrics as 0.
     """
-    if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel steps (axis_name) are not ported yet: ROADMAP.md, Queue 1 item 10"
-        )
     model.train()
     params = dict(model.named_parameters())
     stats = dict(model.named_buffers())
     old_stats = {k: v.clone() for k, v in stats.items()} if nan_guard else None
 
     out = model(source, target)
-    total, new_ema, metrics = loss_fn(out.recon, target, state.loss_ema, state.host_step)
+    total, new_ema, metrics = loss_fn(out.recon, target, state.loss_ema, state.host_step, mesh)
     metrics = dict(metrics)
     if equi is not None:
         view, params_v, params_t, n_grid, w_equi = equi
@@ -169,6 +181,14 @@ def _single_step(
             for (k, p), g in zip(params.items(), grad_list)
         }
         loss = total.detach()
+        if mesh is not None and mesh.size > 1:
+            # one all-reduce: the gradients, the total loss and the terms
+            # that the loss did not average itself
+            terms = [k for k in ("loss/equi", "loss/sep", "loss/ent") if k in metrics]
+            avg = all_reduce_mean_flat([*grads.values(), loss, *(metrics[k] for k in terms)], mesh)
+            grads = dict(zip(grads, avg))
+            loss = avg[len(grads)]
+            metrics.update(zip(terms, avg[len(grads) + 1:]))
         grad_sq = torch.stack([torch.sum(g * g) for g in grads.values()]).sum()
         updates, new_opt_state = optimizer.update(grads, state.opt_state, params)
         new_params = {k: p + updates[k] for k, p in params.items()}
@@ -254,12 +274,14 @@ def _make_step(model, loss_fn, train_config, pair_synth, pair_mode, scan_steps, 
     """The step function shared by both factories. ``get_batch(gen, batch, i)``
     yields iteration ``i``'s data: drawn from ``gen``, or sliced from the
     host-fed ``batch``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "data-parallel steps (mesh) are not ported yet: ROADMAP.md, Queue 1 item 10"
-        )
     if pair_mode not in ("tps", "temporal"):
         raise ValueError(f"unknown pair mode: {pair_mode!r}")
+    mesh = mesh if (mesh is not None and mesh.size > 1) else None
+    if mesh is not None and model.config.norm == "batch" and model.config.axis_name is None:
+        raise ValueError(
+            "a data-parallel step over BatchNorm needs the model config's "
+            "axis_name='data', or each rank would normalise with its own statistics"
+        )
     tc = train_config
     optimizer = make_optimizer(tc)
     use_equi = _check_equi(tc, pair_synth, pair_mode)
@@ -288,7 +310,7 @@ def _make_step(model, loss_fn, train_config, pair_synth, pair_mode, scan_steps, 
             equi = (*equi, equi_w(state.host_step))
         return _single_step(
             model, loss_fn, optimizer, state, source, target,
-            nan_guard=tc.skip_nonfinite_updates, equi=equi, sep=sep, ent=ent,
+            nan_guard=tc.skip_nonfinite_updates, mesh=mesh, equi=equi, sep=sep, ent=ent,
             ema_decay=tc.param_ema_decay,
         )
 
@@ -321,7 +343,10 @@ def make_train_step(
     by one, each taken as its step starts (the experiment's stream: no
     (scan_steps, B, ...) tensor is built).
 
-    ``mesh``: data parallelism is not ported yet; anything but None raises.
+    ``mesh`` (``parallel.mesh.Mesh`` of several ranks): each rank is handed
+    its own share of the global batch (``batch_size / mesh.size`` images)
+    and the step averages across the ranks; the model config must carry
+    ``axis_name='data'`` under BatchNorm.
     """
 
     def get_batch(gen, batch, i):
@@ -352,12 +377,21 @@ def make_synthetic_train_step(
     ``scan_steps`` iterations is generate -> synthesize -> forward ->
     backward -> update with no host data.
 
-    ``mesh``: data parallelism is not ported yet; anything but None raises.
+    ``mesh`` (of several ranks): ``sample_batch`` must accept ``(gen,
+    local_batch)``, and each rank draws ``batch_size / mesh.size`` images
+    from its own generator (the trainer folds the rank into its seed).
     """
+    local = None
+    if mesh is not None and mesh.size > 1:
+        if train_config.batch_size % mesh.size:
+            raise ValueError(
+                f"global batch {train_config.batch_size} not divisible by {mesh.size} ranks"
+            )
+        local = train_config.batch_size // mesh.size
 
     def get_batch(gen, batch, i):
         with torch.no_grad():
-            return sample_batch(gen)
+            return sample_batch(gen) if local is None else sample_batch(gen, local)
 
     return _make_step(
         model, loss_fn, train_config, pair_synth, pair_mode, scan_steps, mesh, get_batch

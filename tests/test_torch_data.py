@@ -317,13 +317,18 @@ def test_build_experiment_refuses_tfdata_for_temporal_pairs(trees):
 
 
 def test_build_experiment_refuses_several_processes(trees, monkeypatch):
-    """With a process group of several processes each would train a model
-    of its own on its shard of the files: data parallelism is item 10."""
-    import imm_tpu_torch.experiment
+    """Several processes must divide the global batch between them: a group
+    of 3 ranks refuses a batch of 4, as the JAX package refuses a batch its
+    process count does not divide (the data-parallel runs themselves:
+    ``tests/test_torch_parallel.py``)."""
+    from imm_tpu_torch import experiment
+    from imm_tpu_torch.parallel.mesh import Mesh
 
-    monkeypatch.setattr(imm_tpu_torch.experiment, "process_shard_spec", lambda: (1, 2))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        build_experiment(_narrow("celeba_k10", trees["celeba"]), device="cpu")
+    cfg = _narrow("celeba_k10", trees["celeba"])
+    assert cfg.train.batch_size == 4
+    monkeypatch.setattr(experiment, "make_mesh", lambda: Mesh(None, 0, 3))
+    with pytest.raises(ValueError, match="not divisible by 3 ranks"):
+        build_experiment(cfg, device="cpu")
 
 
 def test_generate_swaps_two_image_files(tmp_path):

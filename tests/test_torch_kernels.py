@@ -373,3 +373,60 @@ def test_model_paths_agree_on_the_card(dev, n_landmarks):
     got = landmark_fn(model)(img)
     assert landmark_bottleneck.launches == before + 1
     torch.testing.assert_close(got, landmark_fn(plain)(img), rtol=0, atol=1e-5)
+
+
+def _op_cases(dev):
+    """The four custom ops' arguments at the main path's shapes: K1/K2 on
+    (128, 16, 16, 10) heatmaps, K3/K4 on (128, 128, 128, 3) images at a TPS
+    grid within [-1, 1]."""
+    gen = torch.Generator(dev).manual_seed(8)
+    hm = torch.randn((128, 16, 16, 10), generator=gen, device=dev) * 3.0
+    dc = torch.randn((128, 10, 2), generator=gen, device=dev)
+    dm = torch.randn((128, 16, 16, 10), generator=gen, device=dev)
+    images = torch.rand((128, 128, 128, 3), generator=gen, device=dev)
+    grid = (normalized_grid(128, 128, device=dev)[None] * 0.9
+            + torch.randn((128, 128, 128, 2), generator=gen, device=dev) * 0.01).contiguous()
+    cot = torch.randn((128, 128, 128, 3), generator=gen, device=dev)
+    ops = torch.ops.imm_tpu
+    return [
+        (ops.bottleneck_fwd.default, (hm, 16, 16, 10.0, 1.0)),
+        (ops.bottleneck_fwd.default, (hm.clone().requires_grad_(), 16, 16, 10.0, 1.0)),
+        (ops.bottleneck_bwd.default, (hm, dc, dm, 16, 16, 10.0, 1.0)),
+        (ops.bottleneck_bwd.default, (hm, dc, None, 16, 16, 10.0, 1.0)),
+        (ops.warp_fwd.default, (images, grid)),
+        (ops.warp_fwd.default, (images.clone().requires_grad_(), grid.clone().requires_grad_())),
+        (ops.warp_bwd.default, (images, grid, cot)),
+    ]
+
+
+def test_custom_ops_pass_opcheck(dev):
+    """Schema, fake (shape) functions, autograd registration and AOT dispatch
+    of ``imm_tpu::bottleneck_fwd``/``bottleneck_bwd``/``warp_fwd``/``warp_bwd``."""
+    for op, args in _op_cases(dev):
+        torch.library.opcheck(op, args)
+
+
+def test_custom_ops_have_no_cpu_kernel():
+    with pytest.raises(NotImplementedError):
+        torch.ops.imm_tpu.bottleneck_fwd(torch.zeros(1, 4, 4, 2), 4, 4, 10.0, 1.0)
+    with pytest.raises(NotImplementedError):
+        torch.ops.imm_tpu.warp_fwd(torch.zeros(1, 4, 4, 3), torch.zeros(1, 4, 4, 2))
+
+
+def test_exported_landmarker_runs_k1_on_the_card(dev, tmp_path):
+    """``export_landmarker`` on the card keeps K1 in the program: the loaded
+    program launches it and equals ``landmark_fn``."""
+    from imm_tpu_torch.eval.export import export_landmarker, landmark_fn, load_landmarker
+    from imm_tpu_torch.models.imm import IMMConfig, init_model
+
+    cfg = IMMConfig(n_landmarks=5, image_size=32, filters=(8, 8, 16, 16), strides=(1, 2, 1, 2),
+                    decoder_filters=(16, 8, 8))
+    model = init_model(cfg, seed=0, device=dev)
+    img = torch.rand(4, 32, 32, 3, generator=torch.Generator(dev).manual_seed(2), device=dev)
+    blob = export_landmarker(model, 4, 32)
+    exported = load_landmarker(blob)
+    before = landmark_bottleneck.launches
+    got = exported(img)
+    torch.cuda.synchronize()
+    assert landmark_bottleneck.launches == before + 1
+    torch.testing.assert_close(got, landmark_fn(model)(img), rtol=0, atol=1e-5)

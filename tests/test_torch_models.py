@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from imm_tpu.models.imm import IMMConfig as JaxIMMConfig
+from imm_tpu.models.imm import init_model as jax_init_model
 from imm_tpu_torch.models.convert import flatten_variables, from_flax, save_npz
 from imm_tpu_torch.models.imm import IMM, IMMConfig, init_model
 from tests.torch_parity import TINY, images, jax_model, n, port_model, t
@@ -145,5 +146,10 @@ def test_config_validation_matches_jax():
         IMMConfig(**bad)
     assert IMMConfig(**TINY).bottleneck_hw == JaxIMMConfig(**TINY).bottleneck_hw == (8, 8)
     assert IMMConfig(compute_dtype="bfloat16").dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        IMM(IMMConfig(**TINY, entry_s2d=2))
+    # the space-to-depth entry conv reformulates a stride-1 conv only
+    assert IMM(IMMConfig(**TINY, entry_s2d=2)).content_encoder.trunk.blocks[0].s2d_block == 2
+    bad = dict(TINY, strides=(2, 2, 1, 2), decoder_filters=(16, 8, 8, 8), entry_s2d=2)
+    with pytest.raises(ValueError, match="stride-1"):
+        jax_init_model(jax.random.PRNGKey(0), JaxIMMConfig(**bad), batch=1)
+    with pytest.raises(ValueError, match="stride-1"):
+        IMM(IMMConfig(**bad))

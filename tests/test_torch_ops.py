@@ -170,7 +170,9 @@ def test_upsample2x_matches_jax():
 
 
 def test_conv_block_rejects_space_to_depth():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ConvBlock(3, 8, 7, 1, s2d_block=2)
+    """At stride 2: the reformulation is exact for stride-1 convs only."""
+    with pytest.raises(ValueError, match="stride-1"):
+        ConvBlock(3, 8, 7, 2, s2d_block=2)
+    assert ConvBlock(3, 8, 7, 1, s2d_block=2).s2d_kernel.shape == (7, 7, 3, 8)
     with pytest.raises(ValueError):
         ConvBlock(3, 8, norm="layer")

@@ -361,14 +361,21 @@ def test_equi_pass_leaves_batch_stats_to_the_main_pass():
 
 
 def test_axis_name_and_mesh_raise():
-    s = _setup("sgd", "pixel")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        steps._single_step(s["model"], s["loss"], s["opt"], s["state"], t(s["source"]),
-                           t(s["target"]), axis_name="data")
-    from imm_tpu_torch.data.pairs import PairSynthesizer
+    """A mesh of several ranks over BatchNorm needs the model config's
+    ``axis_name``; a mesh of one rank is one process (the data-parallel step
+    itself: ``tests/test_torch_parallel.py``)."""
+    import dataclasses as dc
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        steps.make_train_step(s["model"], s["loss"], TrainConfig(), PairSynthesizer(), mesh=object())
+    from imm_tpu_torch.data.pairs import PairSynthesizer
+    from imm_tpu_torch.parallel.mesh import make_mesh
+
+    s = _setup("sgd", "pixel")
+    one = make_mesh()
+    assert one.size == 1
+    steps.make_train_step(s["model"], s["loss"], TrainConfig(), PairSynthesizer(), mesh=one)
+    with pytest.raises(ValueError, match="axis_name"):
+        steps.make_train_step(s["model"], s["loss"], TrainConfig(), PairSynthesizer(),
+                              mesh=dc.replace(one, size=2))
     with pytest.raises(ValueError, match="unknown pair mode"):
         steps.make_train_step(s["model"], s["loss"], TrainConfig(), PairSynthesizer(), "video")
 
