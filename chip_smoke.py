@@ -44,7 +44,12 @@ B=128) through their entry points:
   ``swap_fn``, timed); ``s2d`` (the space-to-depth entry conv against the
   direct one, and a ``swap`` forward with ``entry_s2d=2``); ``device_init``
   (the bounded first CUDA init of a fresh process) and ``bench``
-  (``imm_tpu_torch.bench``'s entry point in both modes, with few calls).
+  (``imm_tpu_torch.bench``'s entry point in both modes, with few calls);
+- then ``tools``, the experiment tools of ``imm_tpu_torch/tools/`` at full
+  width: the sweep runner on the registry's K=10 flagship probe (40 steps at
+  B=128 and its eval), ``scripts/summarize_sweep.py`` on its record, the
+  diagnostics on its workdir, the trunk trainer with the warp (B=64) and its
+  ``.npz`` in the perceptual loss, and the K=10 oracle (B=128).
 
 It checks the launch counts and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
@@ -196,25 +201,33 @@ def by_kind(rows) -> dict[str, float]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def profiled_device_ms(fn, calls: int = 50, only: str | None = None) -> float:
+def profiled_device_ms(fn, calls: int = 50, only: str | None = None,
+                       complete: str | None = None) -> float:
     """Device time (ms) of the GPU kernels one call of ``fn`` runs (of those
     whose name contains ``only``, if given), averaged over ``calls`` calls
     after a warm-up: the kernels' own time, without the host's time to issue
-    them."""
+    them. ``complete`` names a kernel each call launches once, for a time
+    summed over all of a call's kernels."""
     fn()
     torch.cuda.synchronize()
     # Now and then the tracer hands back a window without some or all of its
     # device records (seen a few times in several hundred windows on an H100):
     # such a window is taken again. ``only`` names a kernel each call launches
-    # once, so its time is averaged over the launches the window recorded.
+    # once, so its time is averaged over the launches the window recorded. A
+    # window that missed launches of ``complete`` cannot be corrected (one
+    # read grid_sample at 0.0019 ms, a tenth of its bound): it is taken again,
+    # and fails the run if the last one is short too.
+    named = only or complete
     for _ in range(3):
         rows, _ = profiled_kernels(fn, calls)
         if only is not None:
             rows = [r for r in rows if only in r[0]]
-        recorded = sum(count for _, count, _ in rows)
-        if rows and (only is None or recorded == calls):
+        recorded = sum(count for key, count, _ in rows if named is None or named in key)
+        if rows and (named is None or recorded == calls):
             break
     check(bool(rows), f"the profiler saw no GPU kernel{f' named {only}' if only else ''}")
+    check(complete is None or recorded == calls,
+          f"the profiler recorded {recorded} of {calls} launches of {complete}")
     return sum(us for _, _, us in rows) / (calls if only is None else recorded) / 1e3
 
 
@@ -982,7 +995,7 @@ def timing_phases(dev, smi, serving, exp):
         dims = (BATCH, 128, 128, 3, 128, 128, 4)
         timings["warp_fwd"] = (
             profiled_device_ms(k3, 20, only="warp_fwd_kernel"), profiled_device_ms(k3_plain, 20),
-            *warp_bound(*dims), profiled_device_ms(k3_lib, 20))
+            *warp_bound(*dims), profiled_device_ms(k3_lib, 20, complete="grid_sampler_2d_kernel"))
         plain_out = bilinear_sample(images, grid)
         cot = torch.randn(plain_out.shape, generator=gen, device=dev)
         k4 = lambda: warp._launch_bwd(img_d, grid_d, cot)  # noqa: E731
@@ -990,7 +1003,8 @@ def timing_phases(dev, smi, serving, exp):
         k4_lib = lambda: torch.autograd.grad(lib_out, (images, grid), cot.permute(0, 3, 1, 2), retain_graph=True)  # noqa: E731
         timings["warp_bwd"] = (
             profiled_device_ms(k4, 20, only="warp_bwd_kernel"), profiled_device_ms(k4_plain, 20),
-            *warp_bwd_bound(*dims), profiled_device_ms(k4_lib, 20))
+            *warp_bwd_bound(*dims),
+            profiled_device_ms(k4_lib, 20, complete="grid_sampler_2d_backward_kernel"))
         # the share of K4's blocks that added straight to device memory on this
         # grid, and the kernel's time when every block does (budget 0)
         count = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -1743,6 +1757,132 @@ def bench_slice():
         emit("bench", args=" ".join(args), **rec)
 
 
+# tools: the registry's K=10 flagship probe and its EMA final (ROADMAP item
+# 7's run) each for one call of the synthetic preset's 40 steps and its final
+# eval, the trunk trainer at B=64 with the warp, and the K=10 oracle for one
+# logged window of 50 steps at B=128
+TOOLS_VARIANT, TOOLS_SWEEP_STEPS = "ind_2x_k10_noisefeat_equi2_ent003", 40
+TOOLS_EMA_VARIANT = "final_ind_2x_k10_noisefeat_equi2_ent003_ema_60k"
+TOOLS_TRUNK_STEPS, TOOLS_TRUNK_BATCH = 40, 64
+TOOLS_ORACLE_STEPS, TOOLS_ORACLE_BATCH = 50, 128
+
+
+def tools_slice():
+    """The experiment tools at full width through their ``main``s, in this
+    process, into ``build/smoke/tools/``: the sweep runner (K1/K2/K3 2/2/2 a
+    step plus K1 in its final eval), ``scripts/summarize_sweep.py`` on its
+    record, the registry's EMA final through ``run_variant`` (its record's
+    EMA metrics and launches, its checkpoint's size), the diagnostics
+    on the sweep's workdir (K1), the trunk trainer with the warp (K3 once a
+    step; it loads its ``.npz`` into the perceptual loss) and the oracle (no
+    kernel: its coordinates are the plain op, as in JAX). Each tool's
+    launches are counted from 0; their printed lines go to ``tools.log``
+    there. -> the launches of the sweeps, the diagnostics and the trunk
+    trainer."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from imm_tpu_torch.tools import diagnose_landmarks, oracle_floor, sweep_tps, train_features
+
+    root = SMOKE / "tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    printed = io.StringIO()
+    record = root / "sweep_tps.jsonl"
+
+    def run(fn, args):
+        reset_kernel_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            out = fn(args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, kernel_counts()
+
+    (rec,), sweep_s, sweep_launches = run(sweep_tps.main, [
+        "--only", TOOLS_VARIANT, "--steps", str(TOOLS_SWEEP_STEPS), "--out", str(record),
+        "--lock-file", "", "--work-root", str(root / "work")])
+    check(set(rec) == {"variant", "steps", "seed", "kind", "overrides", "final", "curve", "wall_s"}
+          and rec["steps"] == TOOLS_SWEEP_STEPS, f"sweep record {rec}")
+    check(all(math.isfinite(v) and v > 0 for v in rec["final"].values()), f"sweep eval {rec}")
+    cfg = sweep_tps.variant_config(TOOLS_VARIANT, sweep_tps.registry()[TOOLS_VARIANT],
+                                   TOOLS_SWEEP_STEPS, root=str(root / "work"))
+    check(cfg.train.batch_size == 128 and cfg.loss.feature_source == "trained"
+          and cfg.train.equi_weight == 2.0, f"sweep config {cfg}")
+    eval_calls = 2 * -(-cfg.eval_samples // 256)  # two splits in chunks of 256
+    n = TOOLS_SWEEP_STEPS
+    want = {"bottleneck_fwd": 2 * n + eval_calls, "bottleneck_bwd": 2 * n, "warp_fwd": 2 * n,
+            "warp_bwd": 0}
+    check(sweep_launches == want, f"sweep launches {sweep_launches}, expected {want}")
+
+    proc = subprocess.run([sys.executable, "scripts/summarize_sweep.py", "--inp", str(record)],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    check(proc.returncode == 0, f"summarize_sweep: {proc.stderr[-2000:]}")
+    table = (root / "sweep_tps_table.md").read_text()
+    check(f"| {TOOLS_VARIANT} | {n} |" in table, f"summarize_sweep table: {table}")
+
+    ema_variant = sweep_tps.registry()[TOOLS_EMA_VARIANT]
+    ema_rec, _, ema_launches = run(lambda _: sweep_tps.run_variant(
+        TOOLS_EMA_VARIANT, ema_variant, n, str(root / "ema.jsonl"), root=str(root / "work")), None)
+    check(set(ema_rec["final"]) == {f"landmark_error_{s}_pct{e}" for s in ("train", "test")
+                                    for e in ("", "_ema")}
+          and all(math.isfinite(v) for v in ema_rec["final"].values()), f"EMA record {ema_rec}")
+    want_ema = dict(want, bottleneck_fwd=2 * n + 2 * eval_calls)  # the eval's raw and EMA sweeps
+    check(ema_launches == want_ema, f"EMA final launches {ema_launches}, expected {want_ema}")
+    ckpt = Path(sweep_tps.variant_workdir(TOOLS_EMA_VARIANT, ema_variant, n, root=str(root / "work")))
+    ckpt = ckpt / "checkpoints" / str(n) / "state.pt"
+    ema_bytes = ckpt.stat().st_size
+
+    workdir = sweep_tps.variant_workdir(TOOLS_VARIANT, sweep_tps.registry()[TOOLS_VARIANT], n,
+                                        root=str(root / "work"))
+    stats, diag_s, diag_launches = run(diagnose_landmarks.main, [
+        "--variant", TOOLS_VARIANT, "--steps", str(n), "--workdir", workdir,
+        "--out", str(root / "diagnose.md")])
+    check(diag_launches["bottleneck_fwd"] > 0
+          and sum(diag_launches.values()) == diag_launches["bottleneck_fwd"],
+          f"diagnostics launches {diag_launches}")
+    check(all(np.isfinite(np.asarray(v)).all() for v in stats.values())
+          and stats["per_gt"].shape == (5,) and stats["heat_std"].shape == (10,),
+          f"diagnostics {stats}")
+
+    npz = root / "trained_features.npz"
+    trunk, _, trunk_launches = run(train_features.main, [
+        "--warp", "--corruption", "noise", "--steps", str(TOOLS_TRUNK_STEPS),
+        "--batch", str(TOOLS_TRUNK_BATCH), "--out", str(npz)])
+    check(trunk_launches == {"bottleneck_fwd": 0, "bottleneck_bwd": 0,
+                             "warp_fwd": trunk["steps"], "warp_bwd": 0},
+          f"train_features launches {trunk_launches}")
+    # the tool loads its npz into the perceptual loss itself (trained_loss)
+    check(all(math.isfinite(trunk[k]) for k in ("loss_first", "loss_last", "trained_loss"))
+          and trunk["trained_loss"] > 0 and npz.stat().st_size > 0, f"train_features {trunk}")
+
+    oracle, oracle_s, oracle_launches = run(oracle_floor.main, [
+        "--k", "10", "--steps", str(TOOLS_ORACLE_STEPS), "--batch", str(TOOLS_ORACLE_BATCH),
+        "--out", str(root / "oracle_floor.jsonl")])
+    check([r["name"] for r in oracle] == ["gt_parts", "supervised_k10"]
+          and all(math.isfinite(r["test_pct"]) and r["test_pct"] > 0 for r in oracle),
+          f"oracle records {oracle}")
+    check(sum(oracle_launches.values()) == 0, f"the oracle launched a kernel: {oracle_launches}")
+    (root / "tools.log").write_text(printed.getvalue())
+
+    emit("tools", variant=TOOLS_VARIANT, sweep_steps=n, sweep_final=rec["final"],
+         sweep_wall_s=rec["wall_s"], sweep_ms_per_step_with_eval_and_save=1000 * rec["wall_s"] / n,
+         sweep_call_s=sweep_s, sweep_launches=sweep_launches, eval_k1_launches=eval_calls,
+         ema_variant=TOOLS_EMA_VARIANT, ema_final=ema_rec["final"], ema_launches=ema_launches,
+         ema_checkpoint_bytes=ema_bytes,
+         diagnose_s=diag_s, diagnose_launches=diag_launches, diagnose_test_pct=float(
+             stats["per_gt"].mean()), diagnose_min_pair_px=stats["min_pair_px"],
+         trunk_steps=trunk["steps"], trunk_batch=TOOLS_TRUNK_BATCH,
+         trunk_ms_per_step=trunk["ms_per_step"], trunk_loss_first=trunk["loss_first"],
+         trunk_loss_last=trunk["loss_last"], trunk_launches=trunk_launches,
+         trained_trunk_loss=trunk["trained_loss"], trunk_npz_bytes=npz.stat().st_size,
+         oracle=oracle, oracle_call_s=oracle_s,
+         oracle_ms_per_step_with_eval=1000 * oracle[-1]["wall_s"] / TOOLS_ORACLE_STEPS)
+    return {k: sweep_launches[k] + ema_launches[k] + diag_launches[k] + trunk_launches[k]
+            for k in sweep_launches}
+
+
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("bottleneck_fwd", "imm_tpu_torch/csrc/bottleneck_fwd.cu", "imm_tpu/ops/fused.py:52"),
     ("bottleneck_bwd", "imm_tpu_torch/csrc/bottleneck_bwd.cu", "imm_tpu/ops/fused.py:111"),
@@ -1794,6 +1934,9 @@ def main() -> int:
         device_init_slice()
     with timed("bench"):
         bench_slice()
+    # This slice's phase: the experiment tools.
+    with timed("tools"):
+        tools_launches = tools_slice()
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 3)
     emit("phase_seconds", **PHASE_SECONDS)
 
@@ -1801,11 +1944,14 @@ def main() -> int:
     # counts set to 0 just before: serving (K1) plus training on on-device
     # data, on image files and on temporal pairs (K1, K2, K3), the two
     # data-parallel ranks' window (K1, K2, K3), the exported programs in
-    # their child (K1), and the warp-gradient path for K4.
+    # their child (K1), the tools (the two sweeps K1, K2, K3, the diagnostics
+    # K1, the trunk trainer K3), and the warp-gradient path for K4.
     launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k] + dp_launches[k]
                 for k in train_launches}
     launches["bottleneck_fwd"] += serving["launches"] + export_k1_launches
     launches["warp_bwd"] = k4_launches
+    for name, count in tools_launches.items():
+        launches[name] += count
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [{

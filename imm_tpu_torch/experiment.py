@@ -150,11 +150,7 @@ def build_experiment(
         def eval_splits():
             """The synthetic eval set is deterministic (fixed seeds): built once,
             kept on the host."""
-            return tuple(
-                {k: v.cpu().numpy() for k, v in
-                 faces.sample(torch.Generator(dev).manual_seed(seed), config.eval_samples).items()}
-                for seed in _EVAL_SEEDS
-            )
+            return synthetic_eval_splits(config.model.image_size, config.eval_samples, dev)
 
         def viz_frames():
             return sample_batch(torch.Generator(dev).manual_seed(_VIZ_SEED), 4)
@@ -263,6 +259,17 @@ def build_experiment(
     return Experiment(
         config=config, device=dev, mesh=mesh, model=model, state=state, loss_fn=loss_fn,
         step_fn=step_fn, eval_fn=eval_fn, trainer=trainer, restore=restore, batches=batches,
+    )
+
+
+def synthetic_eval_splits(image_size: int, n: int, device) -> tuple[dict, dict]:
+    """The synthetic harness's fixed (train, test) eval splits: ``n`` blob
+    faces each, drawn on ``device`` from generators seeded 91 and 92, as
+    host numpy dicts (``image``, ``landmarks``)."""
+    faces = SyntheticBlobFaces(image_size=image_size)
+    return tuple(
+        {k: v.cpu().numpy() for k, v in faces.sample(torch.Generator(device).manual_seed(seed), n).items()}
+        for seed in _EVAL_SEEDS
     )
 
 

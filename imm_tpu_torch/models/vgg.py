@@ -114,6 +114,17 @@ class VGG16Features(nn.Module):
                 conv.bias.copy_(torch.from_numpy(np.asarray(params[name]["bias"], np.float32).copy()))
         return self
 
+    def export_params(self) -> Any:
+        """The inverse of ``load_params``: the ``{name: {"kernel", "bias"}}``
+        tree with HWIO kernels, as float32 numpy on the host."""
+        return {
+            name: {
+                "kernel": self.convs[name].weight.detach().float().cpu().numpy().transpose(2, 3, 1, 0),
+                "bias": self.convs[name].bias.detach().float().cpu().numpy(),
+            }
+            for name, *_ in _conv_names()
+        }
+
 
 def random_vgg16_params(seed: int = 0) -> Any:
     """Deterministic random-feature VGG16 parameters (the offline fallback):

@@ -39,6 +39,7 @@ import os
 import shutil
 import threading
 import time
+import weakref
 from collections.abc import Callable, Iterator
 from typing import Any
 
@@ -80,6 +81,34 @@ def checkpoint_steps(checkpoint_dir: str) -> list[int]:
         int(d) for d in os.listdir(checkpoint_dir)
         if d.isdigit() and os.path.isfile(os.path.join(checkpoint_dir, d, CHECKPOINT_FILE))
     )
+
+
+def _watch(trainer_ref, timeout: float):
+    """The stall watchdog's thread. It watches only while ``run()`` executes
+    (a finished trainer's ``_last_progress`` goes stale, and without the gate
+    it would abort the process ~timeout seconds after a successful run), and
+    it holds its trainer weakly: once the trainer is dropped the thread ends,
+    so a finished experiment's model and state are freed and its watchdog can
+    never fire in the next one (``tools.sweep_tps`` runs several in one
+    process)."""
+    while True:
+        time.sleep(min(timeout / 4, 60.0))
+        trainer = trainer_ref()
+        if trainer is None:
+            return
+        if trainer._watch_active:
+            idle = time.time() - trainer._last_progress
+            if idle > timeout:
+                log.critical(
+                    "no training progress for %.0fs (stall timeout %.0fs)"
+                    " — aborting so a supervisor can restart; training"
+                    " resumes from the latest checkpoint", idle, timeout,
+                )
+                if trainer._on_stall is not None:
+                    trainer._on_stall()
+                    return
+                os._exit(42)
+        del trainer  # no strong reference while asleep
 
 
 class Trainer:
@@ -137,29 +166,9 @@ class Trainer:
     # -- failure detection --------------------------------------------------
 
     def _start_watchdog(self):
-        def watch():
-            timeout = self.options.stall_timeout_s
-            while True:
-                time.sleep(min(timeout / 4, 60.0))
-                # Watch only while the loop is live: the daemon thread
-                # outlives run(), and a finished Trainer's _last_progress
-                # goes stale; without this gate it would abort the process
-                # ~timeout seconds after a successful run.
-                if not self._watch_active:
-                    continue
-                idle = time.time() - self._last_progress
-                if idle > timeout:
-                    log.critical(
-                        "no training progress for %.0fs (stall timeout %.0fs)"
-                        " — aborting so a supervisor can restart; training"
-                        " resumes from the latest checkpoint", idle, timeout,
-                    )
-                    if self._on_stall is not None:
-                        self._on_stall()
-                        return
-                    os._exit(42)
-
-        threading.Thread(target=watch, daemon=True).start()
+        threading.Thread(
+            target=_watch, args=(weakref.ref(self), self.options.stall_timeout_s), daemon=True
+        ).start()
 
     # -- checkpointing ------------------------------------------------------
 

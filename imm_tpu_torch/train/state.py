@@ -124,6 +124,20 @@ def make_optimizer(config: TrainConfig) -> Optimizer:
     return Optimizer(config)
 
 
+def piecewise_constant_config(init_value: float,
+                              boundaries_and_scales: dict[int, float]) -> TrainConfig:
+    """The Adam ``TrainConfig`` whose learning rate is optax's
+    ``piecewise_constant_schedule(init_value, boundaries_and_scales)``: the
+    scales multiply from each boundary on, so they become cumulative
+    ``lr_factors``."""
+    boundaries = sorted(boundaries_and_scales)
+    factors = [1.0]
+    for b in boundaries:
+        factors.append(factors[-1] * boundaries_and_scales[b])
+    return TrainConfig(learning_rate=init_value, lr_boundaries=tuple(boundaries),
+                       lr_factors=tuple(factors))
+
+
 def create_train_state(
     seed: int,
     model_config: IMMConfig,
