@@ -49,7 +49,13 @@ B=128) through their entry points:
   width: the sweep runner on the registry's K=10 flagship probe (40 steps at
   B=128 and its eval), ``scripts/summarize_sweep.py`` on its record, the
   diagnostics on its workdir, the trunk trainer with the warp (B=64) and its
-  ``.npz`` in the perceptual loss, and the K=10 oracle (B=128).
+  ``.npz`` in the perceptual loss, and the K=10 oracle (B=128);
+- then ``resume``: the registry's EMA final at B=128 run as 2N steps in one
+  trainer and as N steps, a fresh experiment restoring at N and N more,
+  its generator state equal bit for bit and its parameters within a
+  stated bound of the uncut run's, a planted fault (the generator state
+  dropped from the checkpoint) far above it, and the checkpoint's size
+  raw and compressed.
 
 It checks the launch counts and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
@@ -1883,6 +1889,116 @@ def tools_slice():
             for k in sweep_launches}
 
 
+# resume: N steps a call, a save after each; 2N steps in one trainer against
+# N, a fresh experiment restoring at N, then N more
+RESUME_STEPS = 5
+# The resumed run's largest parameter difference from the uncut run, over the
+# largest parameter change of the uncut run in steps N..2N. The two runs draw
+# the same batches; cuDNN may sum a weight gradient in another order from run
+# to run, which Adam would carry. The smoke also reads that floor (the uncut
+# run against itself) and the planted fault (the resumed run with its
+# generator state dropped, so it trains on other batches). On an H100 at
+# 700 W (torch 2.11, cuDNN of CUDA 12.8) the floor and the resumed run read
+# 0.0 and the fault 1.03; the bound lies between them, far from both.
+TOL_RESUME_REL = 0.05
+
+
+def resume_slice():
+    """A run in two pieces against the uncut run, at full width: the
+    registry's EMA final (``synthetic_best`` with the parameter EMA) at
+    B=128, 2N steps in one trainer, again (the floor of run-to-run
+    difference), N + resume + N in two experiments on one workdir, and the
+    planted fault. Generator states after 2N equal bit for bit, parameters
+    within ``TOL_RESUME_REL`` of the window's change, the fault far above;
+    the checkpoint's bytes raw, under zlib and as ``tools.pieces`` packs it.
+    -> the kernels' launches (2/2/2 a step)."""
+    import zlib
+
+    from imm_tpu_torch.experiment import build_experiment
+    from imm_tpu_torch.tools import pieces, sweep_tps
+    from imm_tpu_torch.train.loop import CHECKPOINT_FILE, RNG_KEY
+
+    n = RESUME_STEPS
+    root = SMOKE / "resume"
+    shutil.rmtree(root, ignore_errors=True)
+    decay = 0.999
+    check(f"train.param_ema_decay={decay}" in sweep_tps.registry()[TOOLS_EMA_VARIANT].overrides,
+          "the EMA final's decay changed")
+    cfg = smoke_config(n)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, param_ema_decay=decay))
+
+    def run(name: str, steps: int):
+        exp = build_experiment(dataclasses.replace(cfg, workdir=str(root / name)), total_steps=steps)
+        exp.trainer.options.checkpoint_every = n
+        exp.run()
+        torch.cuda.synchronize()
+        check(exp.state.host_step == steps, f"{name}: stopped at {exp.state.host_step}")
+        return exp
+
+    def params(exp):
+        return {k: v.detach().clone() for k, v in exp.state.params.items()}
+
+    def max_diff(a, b):
+        return max(float((a[k].float() - b[k].float()).abs().max()) for k in a)
+
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    whole = run("whole", 2 * n)
+    whole_s = time.perf_counter() - t0
+    end, gen_end = params(whole), whole.trainer.gen.get_state()
+    at_n = torch.load(root / "whole" / "checkpoints" / str(n) / CHECKPOINT_FILE,
+                      map_location=whole.device, weights_only=True)
+    change = max_diff(end, {k: at_n[f"model/{k}"] for k in end})
+    del whole, at_n
+    floor = max_diff(params(run("whole_again", 2 * n)), end)
+
+    run("pieces", n)
+    shutil.copytree(root / "pieces", root / "planted")
+    t0 = time.perf_counter()
+    resumed = run("pieces", 2 * n)
+    resumed_s = time.perf_counter() - t0
+    gen_equal = torch.equal(resumed.trainer.gen.get_state(), gen_end)
+    diff = max_diff(params(resumed), end)
+    wall_s = resumed.trainer.wall_s()
+    del resumed
+
+    path = root / "planted" / "checkpoints" / str(n) / CHECKPOINT_FILE
+    flat = torch.load(path, weights_only=True)
+    torch.save({k: v for k, v in flat.items() if not k.startswith(RNG_KEY)}, path)
+    planted = run("planted", 2 * n)
+    planted_gen_equal = torch.equal(planted.trainer.gen.get_state(), gen_end)
+    fault = max_diff(params(planted), end)
+    del planted
+    torch.cuda.synchronize()
+    launches = kernel_counts()
+    steps = 7 * n  # 2N + 2N + N + N + N
+    want = {"bottleneck_fwd": 2 * steps, "bottleneck_bwd": 2 * steps, "warp_fwd": 2 * steps,
+            "warp_bwd": 0}
+    check(launches == want, f"resume launches {launches}, expected {want}")
+
+    raw = (root / "pieces" / "checkpoints" / str(2 * n) / CHECKPOINT_FILE).read_bytes()
+    packed = {}
+    for name, fn in (("zlib1", lambda b: zlib.compress(b, 1)), ("zlib9", lambda b: zlib.compress(b, 9)),
+                     (f"planes_zlib{pieces.PACK_LEVEL}", pieces.pack_bytes)):
+        t0 = time.perf_counter()
+        out = fn(raw)
+        packed[name] = {"bytes": len(out), "seconds": time.perf_counter() - t0}
+    check(pieces.unpack_bytes(pieces.pack_bytes(raw)) == raw, "packing does not round-trip")
+    emit("resume", preset="synthetic_best", ema_decay=decay, batch=cfg.train.batch_size,
+         steps_per_piece=n, generator_states_equal=gen_equal, max_param_diff=diff,
+         max_param_change_in_window=change, rel_diff=diff / change,
+         floor_rel_diff_uncut_twice=floor / change, planted_fault_rel_diff=fault / change,
+         planted_generator_states_equal=planted_gen_equal, bound_rel=TOL_RESUME_REL,
+         resumed_wall_s=wall_s, uncut_s=whole_s, second_piece_s=resumed_s, launches=launches,
+         checkpoint_bytes=len(raw), packed=packed)
+    check(gen_equal, "the resumed run's generator state differs from the uncut run's")
+    check(diff <= TOL_RESUME_REL * change,
+          f"resumed parameters differ by {diff:.3g}, over {TOL_RESUME_REL} of the change {change:.3g}")
+    check(not planted_gen_equal and fault > TOL_RESUME_REL * change,
+          f"the planted fault reads {fault:.3g}, within the bound of the change {change:.3g}")
+    return launches
+
+
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("bottleneck_fwd", "imm_tpu_torch/csrc/bottleneck_fwd.cu", "imm_tpu/ops/fused.py:52"),
     ("bottleneck_bwd", "imm_tpu_torch/csrc/bottleneck_bwd.cu", "imm_tpu/ops/fused.py:111"),
@@ -1937,6 +2053,9 @@ def main() -> int:
     # This slice's phase: the experiment tools.
     with timed("tools"):
         tools_launches = tools_slice()
+    # A run in two pieces against the uncut run.
+    with timed("resume"):
+        resume_launches = resume_slice()
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 3)
     emit("phase_seconds", **PHASE_SECONDS)
 
@@ -1945,13 +2064,14 @@ def main() -> int:
     # data, on image files and on temporal pairs (K1, K2, K3), the two
     # data-parallel ranks' window (K1, K2, K3), the exported programs in
     # their child (K1), the tools (the two sweeps K1, K2, K3, the diagnostics
-    # K1, the trunk trainer K3), and the warp-gradient path for K4.
+    # K1, the trunk trainer K3), the runs of the resume phase (K1, K2, K3)
+    # and the warp-gradient path for K4.
     launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k] + dp_launches[k]
                 for k in train_launches}
     launches["bottleneck_fwd"] += serving["launches"] + export_k1_launches
     launches["warp_bwd"] = k4_launches
     for name, count in tools_launches.items():
-        launches[name] += count
+        launches[name] += count + resume_launches[name]
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [{

@@ -246,7 +246,9 @@ def experiment_worker(inputs_path: str, device) -> None:
 
     ``inputs``: ``config`` (``ExperimentConfig``), ``steps``, and optionally
     ``warmup_steps``: steps taken first and not counted in the launches or
-    timed (on CUDA the kernels build and load during them)."""
+    timed (on CUDA the kernels build and load during them). Without them a
+    config with a workdir resumes from its latest checkpoint: a piece of a
+    run."""
     from imm_tpu_torch.experiment import build_experiment
     from imm_tpu_torch.ops.fused import landmark_bottleneck
     from imm_tpu_torch.ops.warp import warp_bilinear
@@ -258,6 +260,8 @@ def experiment_worker(inputs_path: str, device) -> None:
     if warmup:
         exp.trainer.total_steps = warmup
         exp.run()
+    elif exp.config.workdir:
+        exp.state = exp.trainer.restore_or_init()
     exp.trainer.total_steps = warmup + steps
     landmark_bottleneck.launches = landmark_bottleneck.bwd_launches = 0
     warp_bilinear.launches = warp_bilinear.bwd_launches = 0
@@ -275,6 +279,7 @@ def experiment_worker(inputs_path: str, device) -> None:
         "rank": exp.mesh.rank, "world": exp.mesh.size, "host_step": state.host_step,
         "state_dict": {k: v.detach().cpu() for k, v in exp.model.state_dict().items()},
         "loss_ema": state.loss_ema.cpu(), "history": exp.trainer.history,
+        "rng": exp.trainer.gen.get_state(),
         "launches": launches, "seconds": seconds, "steps": steps,
         "same_on_every_rank": _same_on_every_rank(tensors, exp.mesh),
     }, Path(inputs_path).with_name(f"rank{exp.mesh.rank}.pt"))

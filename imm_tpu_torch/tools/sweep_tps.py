@@ -18,8 +18,9 @@ Usage:
 
 A variant already recorded in ``--out`` at the same step budget and seed is
 skipped, so an interrupted sweep resumes where it left off; a run cut short
-resumes from its workdir's latest checkpoint. Runs on the GPU unless
-``--device cpu`` is given.
+resumes from its workdir's latest checkpoint and goes on as the uncut run
+(the checkpoint carries its random stream and its evals). Runs on the GPU
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -182,8 +183,10 @@ def run_variant(name: str, variant: Variant, steps: int, out_path: str, seed: in
     evaluate it, append its record to ``out_path`` and return the record.
 
     The workdir keeps a checkpoint every 1,000 steps, so a run that was cut
-    resumes; after a resume the curve covers only the last process's evals,
-    while ``final`` is always the finished run's."""
+    resumes, and the checkpoint carries the generator, the evals and the
+    wall time: the record of a run in pieces is that of the uncut run, its
+    ``curve`` every eval of the run and its ``wall_s`` the sum of the pieces'
+    (the steps that a cut threw away not counted)."""
     config = variant_config(name, variant, steps, seed=seed, root=root)
     exp = build_experiment(config, device=device, restore=True)
     t0 = time.time()
@@ -204,7 +207,7 @@ def run_variant(name: str, variant: Variant, steps: int, out_path: str, seed: in
         "overrides": list(variant.overrides),
         "final": final,
         "curve": curve,
-        "wall_s": round(time.time() - t0, 1),
+        "wall_s": round(exp.trainer.prior_wall_s + time.time() - t0, 1),
     }
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     with open(out_path, "a") as f:

@@ -18,22 +18,31 @@ Mirrors ``imm_tpu.train.loop``.
 - Metrics go to the log and, with ``tensorboard``, to
   ``torch.utils.tensorboard`` when that is installed.
 
-The random stream restarts from ``seed`` whenever a ``Trainer`` is built, as
-the JAX package's key does: a resumed run draws other batches than an
-uninterrupted one would have from the same step on. The generator is not
-part of a checkpoint.
+A checkpoint also carries what a resumed run needs to be the run it
+resumes: each rank's generator state (``trainer/rng/<rank>``), the eval
+entries of ``history`` up to its step (``trainer/history``, JSON bytes) and
+the training wall time so far (``trainer/wall_s``), all tensors, beside the
+state's own. A run cut into pieces (a process killed, restarted with the
+same workdir) so draws the batches an uncut run draws and ends with its
+history. The eval of a step runs before that step's save, so the saved
+history holds it. A checkpoint without a generator state for this rank
+(one written before states were saved, by another number of ranks or on
+another kind of device) restores the rest, and the stream restarts from
+``rank_seed(seed, rank)``, which the log says.
 
 In a process group of several ranks (data parallelism) each rank runs its
 own ``Trainer``: its generator's seed has the rank folded in (rank 0 keeps
 ``seed``), only rank 0 writes checkpoints, logs, panels, TensorBoard and
 runs the eval (which has no collective, so no rank waits on it for long),
-every rank waits at a barrier after a save and every rank restores. The
+every rank sends its generator state to rank 0 before a save (one
+all-reduce) and waits at a barrier after it, and every rank restores. The
 stall watchdog is each rank's own.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import shutil
@@ -54,6 +63,10 @@ from imm_tpu_torch.utils.viz import to_uint8, write_png
 log = logging.getLogger("imm_tpu_torch")
 
 CHECKPOINT_FILE = "state.pt"
+# the trainer's own entries of a checkpoint, beside ``flatten_state``'s
+RNG_KEY = "trainer/rng/"  # + rank: that rank's generator state (uint8)
+HISTORY_KEY = "trainer/history"  # the eval entries of the history, JSON (uint8)
+WALL_KEY = "trainer/wall_s"  # training wall seconds up to the checkpoint (float64)
 
 
 @dataclasses.dataclass
@@ -149,6 +162,11 @@ class Trainer:
         self.eval_every = eval_every
         self.viz_fn = viz_fn
         self.history: list[dict[str, float]] = []
+        # training wall seconds of the run before this process (from the
+        # checkpoint restored) and in this process's calls of run()
+        self.prior_wall_s = 0.0
+        self._run_s = 0.0
+        self._run_t0: float | None = None
         self._writer = None
         self._checkpoint_dir = None
         self._saved_step = None
@@ -183,6 +201,9 @@ class Trainer:
         against an EMA-trained workdir, or resuming after flipping the
         lever), so it is reconciled against what is on disk in either
         direction instead of raising.
+
+        The trainer's own entries (``_restore_trainer_entries``) put back
+        this rank's generator state, the history's evals and the wall time.
         """
         steps = checkpoint_steps(self._checkpoint_dir) if self._checkpoint_dir else []
         if not steps:
@@ -190,6 +211,7 @@ class Trainer:
         latest = steps[-1]
         path = os.path.join(self._checkpoint_dir, str(latest), CHECKPOINT_FILE)
         flat = torch.load(path, map_location=self.state.step.device, weights_only=True)
+        self._restore_trainer_entries(flat, latest)
         state = self.state
         on_disk = any(k.startswith("ema_params/") for k in flat)
         seed_ema = False
@@ -212,6 +234,45 @@ class Trainer:
         log.info("restored checkpoint at step %d", latest)
         return state
 
+    def _restore_trainer_entries(self, flat: dict, step: int):
+        """Take the trainer's entries out of ``flat`` (so that
+        ``load_flat_state`` sees the state's alone) and put back this rank's
+        generator state, the history and the wall time."""
+        rng = {k: flat.pop(k) for k in [k for k in flat if k.startswith(RNG_KEY)]}
+        history, wall = flat.pop(HISTORY_KEY, None), flat.pop(WALL_KEY, None)
+        rank, size = self.mesh.rank, self.mesh.size
+        own = rng.get(f"{RNG_KEY}{rank}")
+        live = self.gen.get_state()
+        if own is not None and len(rng) == size and own.numel() == live.numel():
+            self.gen.set_state(own.cpu())  # set_state takes a CPU ByteTensor
+        else:
+            why = ("no generator state" if not rng
+                   else f"generator states of {len(rng)} ranks" if len(rng) != size
+                   else "a generator state of another kind of device")
+            log.info("checkpoint at step %d holds %s; rank %d's stream restarts from its seed",
+                     step, why, rank)
+        if history is not None:
+            self.history = json.loads(history.cpu().numpy().tobytes())
+        self.prior_wall_s = float(wall) if wall is not None else 0.0
+
+    def wall_s(self) -> float:
+        """Training wall seconds of the run so far: those restored with the
+        checkpoint plus this process's time in ``run()``."""
+        now = time.time() - self._run_t0 if self._run_t0 is not None else 0.0
+        return self.prior_wall_s + self._run_s + now
+
+    def _rng_states(self) -> list[torch.Tensor]:
+        """Every rank's generator state, on every rank (one all-reduce of a
+        zero buffer in which each rank fills its own row)."""
+        own = self.gen.get_state()
+        if self.mesh.size == 1:
+            return [own]
+        buf = torch.zeros((self.mesh.size, own.numel()), dtype=torch.uint8,
+                          device=self.state.step.device)
+        buf[self.mesh.rank] = own.to(buf.device)
+        dist.all_reduce(buf, group=self.mesh.group)
+        return [row.clone() for row in buf.cpu()]
+
     def save(self, wait: bool = False):
         """Write the state's checkpoint at its step and drop all but the
         newest ``keep_checkpoints``. The write is synchronous whatever
@@ -224,18 +285,24 @@ class Trainer:
         step = self.state.host_step
         if step == self._saved_step:
             return
+        rng = self._rng_states()
         if self.mesh.rank == 0:
-            self._write(step)
+            self._write(step, rng)
         self._saved_step = step
         if self.mesh.size > 1:
             dist.barrier(group=self.mesh.group)
 
-    def _write(self, step: int):
+    def _write(self, step: int, rng: list[torch.Tensor]):
+        flat = dict(flatten_state(self.state))
+        flat.update({f"{RNG_KEY}{r}": s for r, s in enumerate(rng)})
+        evals = [h for h in self.history if any(k.startswith("eval/") for k in h)]
+        flat[HISTORY_KEY] = torch.frombuffer(bytearray(json.dumps(evals).encode()), dtype=torch.uint8)
+        flat[WALL_KEY] = torch.tensor(self.wall_s(), dtype=torch.float64)
         step_dir = os.path.join(self._checkpoint_dir, str(step))
         os.makedirs(step_dir, exist_ok=True)
         tmp = os.path.join(step_dir, CHECKPOINT_FILE + ".tmp")
         with open(tmp, "wb") as f:
-            torch.save(flatten_state(self.state), f)
+            torch.save(flat, f)
             f.flush()
             os.fsync(f.fileno())
         os.replace(tmp, os.path.join(step_dir, CHECKPOINT_FILE))
@@ -281,10 +348,13 @@ class Trainer:
     def run(self):
         self._last_progress = time.time()
         self._watch_active = True
+        self._run_t0 = time.time()
         try:
             return self._run()
         finally:
             self._watch_active = False
+            self._run_s += time.time() - self._run_t0
+            self._run_t0 = None
 
     def _run(self):
         state = self.state
@@ -314,12 +384,7 @@ class Trainer:
                 t_window = time.time()
                 images_in_window = 0
                 next_log = step + self.options.log_every
-            if (
-                self._checkpoint_dir is not None
-                and step > 0
-                and step % self.options.checkpoint_every < self.steps_per_call
-            ):
-                self.save()
+            # the eval before the save: the checkpoint's history holds it
             if (
                 self.eval_fn is not None
                 and self.eval_every > 0
@@ -330,6 +395,12 @@ class Trainer:
                 self._log(step, {f"eval/{k}": v for k, v in ev.items()})
                 if self.viz_fn is not None:
                     self.write_image_summary(step, self.viz_fn(state))
+            if (
+                self._checkpoint_dir is not None
+                and step > 0
+                and step % self.options.checkpoint_every < self.steps_per_call
+            ):
+                self.save()
         self.state = state
         if self._checkpoint_dir is not None:
             self.save(wait=True)

@@ -124,6 +124,39 @@ def test_two_rank_synthetic_windows_keep_the_ranks_identical(tmp_path, equi_weig
     assert metrics[0] == metrics[1]
 
 
+def test_two_rank_run_in_pieces_equals_the_uncut_run_on_each_rank(tmp_path):
+    """Two ranks trained 2N steps in one experiment, and N steps, then a
+    fresh experiment resuming from the workdir for N more, all in one
+    process group: equal bit for bit on each rank, generators included.
+    Rank 0's checkpoint holds both ranks' generator states."""
+    cfg = get_preset("tiny_cpu")
+    cfg = dataclasses.replace(cfg, eval_every=0, train=dataclasses.replace(
+        cfg.train, batch_size=B, steps_per_call=1))
+    n_steps, calls = 2, []
+    for name, workdir, steps in (("whole", "whole_w", 2 * n_steps), ("piece1", "pieces_w", n_steps),
+                                 ("piece2", "pieces_w", 2 * n_steps)):
+        (tmp_path / name).mkdir()
+        inputs = dict(config=dataclasses.replace(cfg, workdir=str(tmp_path / workdir)), steps=steps)
+        torch.save(inputs, tmp_path / name / "inputs.pt")
+        calls.append((dryrun.experiment_worker, (str(tmp_path / name / "inputs.pt"), "cpu")))
+    dryrun.spawn(dryrun.worker_sequence, 2, calls, device="cpu", threads=1)
+
+    def out(name, r):
+        return torch.load(tmp_path / name / f"rank{r}.pt", weights_only=False)
+
+    flat = torch.load(tmp_path / "pieces_w" / "checkpoints" / str(n_steps) / "state.pt",
+                      weights_only=True)
+    for r in (0, 1):
+        whole, pieced = out("whole", r), out("piece2", r)
+        assert pieced["host_step"] == whole["host_step"] == 2 * n_steps
+        for k, v in whole["state_dict"].items():
+            assert torch.equal(v, pieced["state_dict"][k]), (r, k)
+        assert torch.equal(whole["loss_ema"], pieced["loss_ema"])
+        assert torch.equal(whole["rng"], pieced["rng"])
+        assert torch.equal(flat[f"trainer/rng/{r}"], out("piece1", r)["rng"])
+    assert not torch.equal(out("whole", 0)["rng"], out("whole", 1)["rng"])  # streams of their own
+
+
 def test_two_rank_run_on_files_shards_them_as_the_jax_package(tmp_path):
     """``celeba`` on the committed fixtures, 8 images a step over 2 ranks:
     each rank feeds 4 images from its interleaved half of the files, from

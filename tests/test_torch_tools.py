@@ -18,6 +18,7 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import threading
@@ -42,11 +43,11 @@ from imm_tpu.ops.coords import marginal_distributions as jax_marginal_distributi
 from imm_tpu.ops.coords import marginal_softmax_coords as jax_marginal_softmax_coords
 from imm_tpu.utils.config import _to_dict as jax_to_dict
 from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
-from imm_tpu_torch.experiment import synthetic_eval_splits
+from imm_tpu_torch.experiment import build_experiment, synthetic_eval_splits
 from imm_tpu_torch.losses.perceptual import ReconstructionLoss
 from imm_tpu_torch.models.convert import from_flax
 from imm_tpu_torch.models.vgg import load_vgg16_params, save_vgg16_params
-from imm_tpu_torch.tools import diagnose_landmarks, oracle_floor, sweep_tps, train_features
+from imm_tpu_torch.tools import diagnose_landmarks, oracle_floor, pieces, sweep_tps, train_features
 from imm_tpu_torch.train.loop import Trainer, TrainerOptions
 from imm_tpu_torch.train.state import make_optimizer, piecewise_constant_config
 from imm_tpu_torch.utils.config import PerceptualLossConfig
@@ -212,6 +213,71 @@ def test_sweep_run_records_the_jax_keys_and_resumes(narrow_sweep):
     table = (root / "sweep_tps_table.md").read_text()
     assert "| narrow | 4 |" in table
     assert (root / "eval_curve_sweep_narrow.txt").read_text().startswith("step 2 test=")
+
+
+def test_a_sweep_run_in_two_pieces_records_the_uncut_runs_curve(narrow_sweep, tmp_path,
+                                                                one_thread):
+    """The first piece stops at step 2 (a process cut after its save); the
+    runner resumes the workdir, and its one record's curve spans both pieces
+    and equals the uncut run's, as does its final eval."""
+    _, _, (uncut,), _ = narrow_sweep
+    variant = sweep_tps.Variant(NARROW)
+    cfg = sweep_tps.variant_config("narrow", variant, NARROW_STEPS, root=str(tmp_path / "work"))
+    first = build_experiment(cfg, device="cpu", total_steps=NARROW_STEPS // 2)
+    first.run()
+    assert [h["step"] for h in first.trainer.history if "eval/landmark_error_test_pct" in h] == [2]
+    wall_first = first.trainer.wall_s()
+    del first
+    out = tmp_path / "sweep_tps.jsonl"
+    rec = sweep_tps.run_variant("narrow", variant, NARROW_STEPS, str(out), device="cpu",
+                                root=str(tmp_path / "work"))
+    assert [json.loads(ln) for ln in out.read_text().splitlines()] == [rec]
+    assert set(rec) == JAX_RECORD_KEYS
+    assert [p["step"] for p in rec["curve"]] == [2, 4]
+    assert rec["curve"] == uncut["curve"] and rec["final"] == uncut["final"]
+    assert rec["wall_s"] >= round(wall_first, 1)  # the pieces' sum
+
+
+def test_pieces_stops_at_the_next_checkpoint_and_carries_it(tmp_path):
+    """``tools.pieces``: a command stopped at the first checkpoint after its
+    budget, or at the hard limit, or left to finish; the newest checkpoint
+    packed, unpacked bit for bit into another root, and packed alone."""
+    root = tmp_path / "root"
+    writer = (
+        "import os, sys, time\n"
+        "for step in (1, 2, 3):\n"
+        "    time.sleep(0.6)\n"
+        "    d = os.path.join(sys.argv[1], 'w', 'checkpoints', str(step))\n"
+        "    os.makedirs(d)\n"
+        "    open(os.path.join(d, 'state.pt.tmp'), 'wb').write(bytes(range(step, step + 203)))\n"
+        "    os.replace(os.path.join(d, 'state.pt.tmp'), os.path.join(d, 'state.pt'))\n"
+        "time.sleep(60)\n"
+    )
+    cmd = [sys.executable, "-c", writer, str(root)]
+    rc, how = pieces.run_piece(cmd, str(root), budget_s=0.9, hard_s=30, log_path=None, poll_s=0.1)
+    assert (rc, how) == (0, "checkpoint")
+    assert pieces.workdirs(str(root)) == {"w": 2}  # the first checkpoint after the budget
+    shutil.rmtree(root)
+    rc, how = pieces.run_piece(cmd, str(root), budget_s=100, hard_s=1.0, log_path=None, poll_s=0.1)
+    assert (rc, how) == (124, "hard_limit") and pieces.workdirs(str(root)) == {"w": 1}
+    rc, how = pieces.run_piece([sys.executable, "-c", "raise SystemExit(3)"], str(root),
+                               budget_s=0, hard_s=30, log_path=None, poll_s=0.1)
+    assert (rc, how) == (3, "finished")
+
+    carry = tmp_path / "carry"
+    assert pieces.pack(str(root), str(carry)) == {"w": (1, 203, len((carry / "w" / "1.pt.z").read_bytes()))}
+    other = tmp_path / "other"
+    assert pieces.unpack(str(carry), str(other)) == {"w": 1}
+    assert (other / "w/checkpoints/1/state.pt").read_bytes() == bytes(range(1, 204))
+    assert pieces.unpack(str(carry), str(other)) == {}  # already there
+    (root / "w/checkpoints/7").mkdir()
+    (root / "w/checkpoints/7/state.pt").write_bytes(b"x" * 10)
+    pieces.pack(str(root), str(carry))
+    assert sorted(p.name for p in (carry / "w").iterdir()) == ["7.pt.z"]
+    for data in (b"", b"abc", bytes(range(256)) * 3 + b"z"):
+        assert pieces.join_planes(pieces.split_planes(data)) == data
+        assert pieces.unpack_bytes(pieces.pack_bytes(data)) == data
+    assert pieces.split_planes(b"abcdefgh") == b"aebfcgdh"
 
 
 def test_diagnostics_run_on_the_sweeps_checkpoint(narrow_sweep, monkeypatch, one_thread):

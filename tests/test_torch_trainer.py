@@ -168,6 +168,114 @@ def test_checkpoint_weights_drive_the_jax_model(tmp_path):
     np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
+# -- a run in pieces ----------------------------------------------------------------
+
+PIECE = 3  # steps of each piece; eval_every=PIECE, so the cut falls on an eval
+
+
+@pytest.fixture
+def one_thread():
+    """These tests train several tiny runs: on one CPU thread each, so that
+    under several test workers their small convs do not wait on each
+    other's threads."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _run_to(workdir, steps, ema_decay=0.0):
+    """A fresh experiment on ``workdir`` run to ``steps`` (resuming from its
+    latest checkpoint), evaluating every ``PIECE`` steps."""
+    exp = build_experiment(_config(workdir, ema_decay, eval_every=PIECE, eval_samples=16),
+                           device="cpu", total_steps=steps)
+    exp.trainer.viz_fn = None
+    exp.run()
+    return exp
+
+
+@pytest.fixture(scope="module")
+def uncut(tmp_path_factory):
+    """The uncut runs of 2 * PIECE steps, without and with the EMA, run once
+    for the tests below: ema_decay -> (flat state, generator state, evals)."""
+    runs = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as one_thread does
+    try:
+        for ema_decay in (0.0, 0.5):
+            exp = _run_to(tmp_path_factory.mktemp("uncut"), 2 * PIECE, ema_decay)
+            runs[ema_decay] = ({k: v.clone() for k, v in flatten_state(exp.state).items()},
+                               exp.trainer.gen.get_state(), _curve(exp))
+    finally:
+        torch.set_num_threads(threads)
+    return runs
+
+
+def _drop(workdir, prefix):
+    """Rewrite the newest checkpoint of ``workdir`` without the keys under
+    ``prefix``."""
+    steps = checkpoint_steps(str(workdir / "checkpoints"))
+    path = workdir / "checkpoints" / str(steps[-1]) / CHECKPOINT_FILE
+    flat = torch.load(path, weights_only=True)
+    torch.save({k: v for k, v in flat.items() if not k.startswith(prefix)}, path)
+
+
+def _curve(exp):
+    return [h for h in exp.trainer.history if "eval/landmark_error_test_pct" in h]
+
+
+@pytest.mark.parametrize("ema_decay", [0.0, 0.5])
+def test_a_run_in_two_pieces_is_the_uncut_run_bit_for_bit(tmp_path, ema_decay, uncut, one_thread):
+    flat, gen, curve = uncut[ema_decay]
+    _run_to(tmp_path / "pieces", PIECE, ema_decay)
+    pieced = _run_to(tmp_path / "pieces", 2 * PIECE, ema_decay)
+    assert pieced.state.host_step == 2 * PIECE
+    _assert_same(flatten_state(pieced.state), flat)
+    assert torch.equal(pieced.trainer.gen.get_state(), gen)
+    # the history holds the first piece's eval too, equal to the uncut run's
+    assert [h["step"] for h in _curve(pieced)] == [PIECE, 2 * PIECE]
+    assert _curve(pieced) == curve
+    assert pieced.trainer.prior_wall_s > 0
+    assert pieced.trainer.wall_s() > pieced.trainer.prior_wall_s
+
+
+@pytest.mark.parametrize("dropped", ["trainer/rng/", "trainer/"],
+                         ids=["generator_dropped", "checkpoint_before_generator_states"])
+def test_a_checkpoint_without_generator_state_restarts_the_stream(tmp_path, dropped, caplog,
+                                                                  uncut, one_thread):
+    """The planted fault (the generator state dropped) and a checkpoint
+    written before the trainer saved its entries both restore, log the
+    restart, and train on other batches than the uncut run."""
+    flat, _, _ = uncut[0.0]
+    _run_to(tmp_path / "pieces", PIECE)
+    _drop(tmp_path / "pieces", dropped)
+    with caplog.at_level("INFO", logger="imm_tpu_torch"):
+        pieced = _run_to(tmp_path / "pieces", 2 * PIECE)
+    assert "holds no generator state; rank 0's stream restarts from its seed" in caplog.text
+    assert pieced.state.host_step == 2 * PIECE
+    a = flatten_state(pieced.state)
+    assert torch.equal(a["step"], flat["step"])
+    assert not torch.equal(a["model/decoder.to_rgb.weight"], flat["model/decoder.to_rgb.weight"])
+    # the history: restored with the generator dropped, lost with every entry
+    want = [PIECE, 2 * PIECE] if dropped == "trainer/rng/" else [2 * PIECE]
+    assert [h["step"] for h in _curve(pieced)] == want
+
+
+def test_a_checkpoint_restored_on_another_device_kind_restarts_the_stream(tmp_path, caplog,
+                                                                          one_thread):
+    _trained(tmp_path / "w", 2)
+    path = tmp_path / "w" / "checkpoints" / "2" / CHECKPOINT_FILE
+    flat = torch.load(path, weights_only=True)
+    flat["trainer/rng/0"] = torch.zeros(16, dtype=torch.uint8)  # a CUDA Philox state's size
+    torch.save(flat, path)
+    fresh = build_experiment(_config(tmp_path / "w"), device="cpu", total_steps=3)
+    seeded = fresh.trainer.gen.get_state()
+    with caplog.at_level("INFO", logger="imm_tpu_torch"):
+        assert fresh.trainer.restore_or_init().host_step == 2
+    assert "a generator state of another kind of device" in caplog.text
+    assert torch.equal(fresh.trainer.gen.get_state(), seeded)
+
+
 # -- the stall watchdog ----------------------------------------------------------
 
 
