@@ -44,7 +44,10 @@ B=128) through their entry points:
   ``swap_fn``, timed); ``s2d`` (the space-to-depth entry conv against the
   direct one, and a ``swap`` forward with ``entry_s2d=2``); ``device_init``
   (the bounded first CUDA init of a fresh process) and ``bench``
-  (``imm_tpu_torch.bench``'s entry point in both modes, with few calls);
+  (``imm_tpu_torch.bench``'s entry point in both modes, with few calls: the
+  root bench's training workload with its nested full-resolution record
+  and with explicit loss options, its FLOPs and shares of peak, launches
+  1/1/2 a step, and inference refusing the training options);
 - then ``tools``, the experiment tools of ``imm_tpu_torch/tools/`` at full
   width: the sweep runner on the registry's K=10 flagship probe (40 steps at
   B=128 and its eval), ``scripts/summarize_sweep.py`` on its record, the
@@ -1744,23 +1747,73 @@ def device_init_slice():
     emit("device_init", **rec)
 
 
+# bench: train records of 2 calls of 2 steps after the bench's 3 warm-up
+# calls and its one counted call
+BENCH_SCAN, BENCH_CALLS = 2, 2
+
+
 def bench_slice():
     """``python -m imm_tpu_torch.bench`` in both modes, in this process and
-    with few calls: the entry point runs and its records are sound. Its
-    timing is the smoke's own (``times_ms``), whose full readings are the
-    ``serving`` and ``training`` phases'."""
+    with few calls: the entry point runs and its records are sound. Train:
+    the root bench's workload (no equivariance pass: K1/K2/K3 1/1/2 a step)
+    bare, with its nested ``fullres_loss``, and with explicit loss options;
+    its FLOPs and shares of peak; inference refuses the training options.
+    Its timing is the smoke's own (``times_ms``), whose full readings are
+    the ``serving`` and ``training`` phases'. -> the train runs' launches."""
     import contextlib
     import io
 
     from imm_tpu_torch import bench
 
-    for args in (("--mode", "inference", "--steps", "10"), ("--mode", "train", "--steps", "5")):
+    def run(*args):
         out = io.StringIO()
         with contextlib.redirect_stdout(out):
             bench.main(list(args))
-        rec = json.loads(out.getvalue().strip().splitlines()[-1])
+        lines = out.getvalue().strip().splitlines()
+        check(len(lines) == 1, f"bench {args} printed {len(lines)} lines")
+        return json.loads(lines[0])
+
+    args = ("--mode", "inference", "--steps", "10")
+    rec = run(*args)
+    check(rec["device"]["platform"] == "gpu" and rec["value"] > 0, f"bench {args}: {rec}")
+    emit("bench", args=" ".join(args), **rec)
+    with contextlib.redirect_stderr(io.StringIO()) as err:
+        try:
+            bench.main(["--mode", "inference", "--loss-input-scale", "1"])
+            refused = False
+        except SystemExit as e:
+            refused = e.code != 0
+    check(refused and "no effect in --mode inference" in err.getvalue(),
+          "bench --mode inference took --loss-input-scale")
+
+    launches = {name: 0 for name in kernel_counts()}
+    calls = "--scan", str(BENCH_SCAN), "--steps", str(BENCH_CALLS)
+    for args, workloads in (((*calls,), 2),
+                            ((*calls, "--loss-input-scale", "1", "--taps", "conv1_2,conv2_2"), 1)):
+        reset_kernel_counts()
+        rec = run("--mode", "train", *args)
+        counts = kernel_counts()
+        steps = workloads * (1 + bench.TRAIN_WARMUP + BENCH_CALLS) * BENCH_SCAN
+        check(counts == {"bottleneck_fwd": steps, "bottleneck_bwd": steps, "warp_fwd": 2 * steps,
+                         "warp_bwd": 0}, f"bench {args}: launches {counts} for {steps} steps")
+        records = [rec] + ([rec["fullres_loss"]] if workloads == 2 else [])
+        check(("fullres_loss" in rec) == (workloads == 2), f"bench {args}: fullres_loss")
         check(rec["device"]["platform"] == "gpu" and rec["value"] > 0, f"bench {args}: {rec}")
-        emit("bench", args=" ".join(args), **rec)
+        for r in records:
+            check(r["tflops"] > 0 and r["pct_of_measured_peak"] <= 100, f"bench {args}: {r}")
+            if rec["nominal_peak_tflops_assumed"] is not None:
+                check(r["pct_of_nominal_peak"] <= r["pct_of_measured_peak"], f"bench {args}: {r}")
+        if rec["device"]["kind"] == "NVIDIA H100 80GB HBM3":
+            check(rec["nominal_peak_tflops_assumed"] == 989.4, f"bench {args}: {rec}")
+        check(rec["loss_input_scale"] == (1 if workloads == 1 else 2)
+              and (workloads == 2 or rec["loss_taps"] == ["conv1_2", "conv2_2"]), f"bench {args}: {rec}")
+        emit("bench", args=" ".join(("--mode", "train", *args)), launches=counts, **rec)
+        for name, count in counts.items():
+            launches[name] += count
+    # main took the sweep runners' lock for the process's life; this process goes on
+    for path in list(bench._HELD_LOCKS):
+        bench._HELD_LOCKS.pop(path).close()
+    return launches
 
 
 # tools: the registry's K=10 flagship probe and its EMA final (ROADMAP item
@@ -2049,7 +2102,7 @@ def main() -> int:
     with timed("device_init"):
         device_init_slice()
     with timed("bench"):
-        bench_slice()
+        bench_launches = bench_slice()
     # This slice's phase: the experiment tools.
     with timed("tools"):
         tools_launches = tools_slice()
@@ -2064,14 +2117,15 @@ def main() -> int:
     # data, on image files and on temporal pairs (K1, K2, K3), the two
     # data-parallel ranks' window (K1, K2, K3), the exported programs in
     # their child (K1), the tools (the two sweeps K1, K2, K3, the diagnostics
-    # K1, the trunk trainer K3), the runs of the resume phase (K1, K2, K3)
-    # and the warp-gradient path for K4.
+    # K1, the trunk trainer K3), the runs of the resume phase (K1, K2, K3),
+    # the bench's training runs (K1, K2, K3) and the warp-gradient path for
+    # K4.
     launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k] + dp_launches[k]
                 for k in train_launches}
     launches["bottleneck_fwd"] += serving["launches"] + export_k1_launches
     launches["warp_bwd"] = k4_launches
     for name, count in tools_launches.items():
-        launches[name] += count + resume_launches[name]
+        launches[name] += count + resume_launches[name] + bench_launches[name]
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [{

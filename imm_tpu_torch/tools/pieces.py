@@ -90,9 +90,12 @@ def _write_atomic(path: str, data: bytes) -> None:
 
 
 def unpack(carry: str, root: str) -> dict[str, int]:
-    """Step 1: the carried checkpoints into their workdirs; -> what was unpacked."""
+    """Step 1: the carried checkpoints into their workdirs; -> what was
+    unpacked. Files beside the workdirs (the pieces' ``--log``) are left."""
     have, done = workdirs(root), {}
     for name in sorted(os.listdir(carry)) if os.path.isdir(carry) else []:
+        if not os.path.isdir(os.path.join(carry, name)):
+            continue
         files = [f for f in os.listdir(os.path.join(carry, name)) if f.endswith(SUFFIX)]
         if len(files) != 1:
             raise SystemExit(f"{carry}/{name}: expected one *{SUFFIX} file, found {files}")

@@ -266,6 +266,7 @@ def test_pieces_stops_at_the_next_checkpoint_and_carries_it(tmp_path):
 
     carry = tmp_path / "carry"
     assert pieces.pack(str(root), str(carry)) == {"w": (1, 203, len((carry / "w" / "1.pt.z").read_bytes()))}
+    (carry / "piece.log").write_text("the pieces' log, carried beside the workdirs\n")
     other = tmp_path / "other"
     assert pieces.unpack(str(carry), str(other)) == {"w": 1}
     assert (other / "w/checkpoints/1/state.pt").read_bytes() == bytes(range(1, 204))
