@@ -58,7 +58,13 @@ B=128) through their entry points:
   its generator state equal bit for bit and its parameters within a
   stated bound of the uncut run's, a planted fault (the generator state
   dropped from the checkpoint) far above it, and the checkpoint's size
-  raw and compressed.
+  raw and compressed;
+- then ``k30``: the registry's K=30 EMA final
+  (``final_ind_3x_k30_noisefeat_equi1_ema_60k``) through the sweep runner's
+  ``run_variant`` at B=128 for one call of 40 steps, K1/K2/K3 2/2/2 a step
+  at K=30, its final eval, then its step timed from the run's checkpoint
+  beside ``synthetic_best``'s. Alone:
+  ``python3 -c 'import chip_smoke as s; s.device_phase(); s.build_phase(); s.k30_slice()'``.
 
 It checks the launch counts and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
@@ -362,6 +368,7 @@ def kernel_checks(dev) -> dict[str, float]:
         ((4, 16, 16, 20), (16, 16), 1.0),  # K of the 20-landmark presets
         ((64, 16, 16, 16), (16, 16), 1.0),  # human36m's step: B=64, K=16
         ((64, 16, 16, 20), (16, 16), 1.0),  # cats_k20's step: B=64, K=20
+        ((BATCH, 16, 16, 30), (16, 16), 1.0),  # the K=30 final's step: B=128, K=30
         ((4, 8, 8, 10), (8, 8), 1.0),  # 64 px images: an 8 x 8 map
         ((2, 32, 32, 10), (32, 32), 1.0),  # 256 px images: the strided route of both
         ((2, 16, 16, 40), (16, 16), 1.0),  # more landmarks than a block has warps
@@ -2052,6 +2059,74 @@ def resume_slice():
     return launches
 
 
+# k30: the registry's K=30 EMA final through the sweep runner's
+# ``run_variant`` for one call of its K30_STEPS steps (the gate's call), then
+# its step timed from the run's checkpoint, K30_TIMED calls after one.
+K30_VARIANT = "final_ind_3x_k30_noisefeat_equi1_ema_60k"
+K30_STEPS, K30_TIMED = 40, 2
+
+
+def k30_slice(synthetic_best_p50: float | None = None):
+    """The K=30 gate's entry point on the card: ``sweep_tps.run_variant`` on
+    the registry's ``final_ind_3x_k30_noisefeat_equi1_ema_60k`` (B=128, the
+    variant's overrides, the trained trunk's ``.npz``) for one call, K1/K2/K3
+    launched 2/2/2 a step at (128, 16, 16, 30) plus K1 in its final eval of
+    the raw and the EMA parameters; then a fresh experiment restored from
+    its checkpoint takes a call whose metrics must be finite, and its step is
+    timed beside ``synthetic_best``'s p50 when the caller has it. -> the
+    run's launches."""
+    import contextlib
+    import io
+
+    from imm_tpu_torch.experiment import build_experiment
+    from imm_tpu_torch.tools import sweep_tps
+
+    root = SMOKE / "k30"
+    shutil.rmtree(root, ignore_errors=True)
+    variant = sweep_tps.registry()[K30_VARIANT]
+    n = K30_STEPS
+    cfg = sweep_tps.variant_config(K30_VARIANT, variant, n, root=str(root))
+    check((cfg.model.n_landmarks, cfg.model.image_size, cfg.train.batch_size, cfg.train.equi_weight,
+           cfg.train.param_ema_decay, cfg.train.ent_weight, cfg.loss.feature_source,
+           cfg.train.steps_per_call) == (30, 128, BATCH, 1.0, 0.999, 0.0, "trained", n),
+          f"not the K=30 final's config: {cfg}")
+    reset_kernel_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rec = sweep_tps.run_variant(K30_VARIANT, variant, n, str(root / "k30.jsonl"), root=str(root))
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    check(set(rec["final"]) == {f"landmark_error_{s}_pct{e}" for s in ("train", "test")
+                                for e in ("", "_ema")}
+          and all(math.isfinite(v) and v > 0 for v in rec["final"].values()), f"k30 record {rec}")
+    eval_calls = 2 * 2 * -(-cfg.eval_samples // 256)  # raw and EMA, two splits in chunks of 256
+    want = {"bottleneck_fwd": 2 * n + eval_calls, "bottleneck_bwd": 2 * n, "warp_fwd": 2 * n,
+            "warp_bwd": 0}
+    check(launches == want, f"k30 launches {launches}, expected {want}")
+
+    exp = build_experiment(cfg, restore=True)
+    state = exp.trainer.restore_or_init()
+    check(exp.device.type == "cuda" and state.host_step == n == int(state.step)
+          and state.ema_params is not None, f"k30 restored at {state.host_step}")
+    gen = torch.Generator(exp.device).manual_seed(8)
+    _, metrics = exp.step_fn(state, gen)
+    metrics = {k: float(v) for k, v in metrics.items()}
+    check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
+    check(metrics.get("nonfinite_step", 0.0) == 0.0, "a step was skipped as non-finite")
+    check("loss/equi" in metrics and "loss/ent" not in metrics, f"k30 metrics {sorted(metrics)}")
+    p50, p90 = p50_p90(cuda_times(lambda: exp.step_fn(state, gen), reps=K30_TIMED, warmup=0))
+    p50, p90 = p50 / n, p90 / n
+    emit("k30", variant=K30_VARIANT, n_landmarks=30, batch=cfg.train.batch_size, steps=n,
+         launches=launches, launches_per_step={k: v / n for k, v in launches.items()},
+         eval_k1_launches=eval_calls, final=rec["final"], run_s=run_s, wall_s=rec["wall_s"],
+         metrics=metrics, step_ms_p50=p50, step_ms_p90=p90, timed_calls=K30_TIMED,
+         synthetic_best_step_ms_p50=synthetic_best_p50,
+         ratio_to_synthetic_best=None if synthetic_best_p50 is None else p50 / synthetic_best_p50,
+         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return launches
+
+
 KERNELS = (  # name, source, the TPU kernel it replaces
     ("bottleneck_fwd", "imm_tpu_torch/csrc/bottleneck_fwd.cu", "imm_tpu/ops/fused.py:52"),
     ("bottleneck_bwd", "imm_tpu_torch/csrc/bottleneck_bwd.cu", "imm_tpu/ops/fused.py:111"),
@@ -2109,6 +2184,9 @@ def main() -> int:
     # A run in two pieces against the uncut run.
     with timed("resume"):
         resume_launches = resume_slice()
+    # The K=30 gate's training path.
+    with timed("k30"):
+        k30_launches = k30_slice(synthetic_best_p50)
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 3)
     emit("phase_seconds", **PHASE_SECONDS)
 
@@ -2118,14 +2196,15 @@ def main() -> int:
     # data-parallel ranks' window (K1, K2, K3), the exported programs in
     # their child (K1), the tools (the two sweeps K1, K2, K3, the diagnostics
     # K1, the trunk trainer K3), the runs of the resume phase (K1, K2, K3),
-    # the bench's training runs (K1, K2, K3) and the warp-gradient path for
-    # K4.
+    # the bench's training runs (K1, K2, K3), the K=30 final's window (K1,
+    # K2, K3) and the warp-gradient path for K4.
     launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k] + dp_launches[k]
                 for k in train_launches}
     launches["bottleneck_fwd"] += serving["launches"] + export_k1_launches
     launches["warp_bwd"] = k4_launches
     for name, count in tools_launches.items():
-        launches[name] += count + resume_launches[name] + bench_launches[name]
+        launches[name] += (count + resume_launches[name] + bench_launches[name]
+                           + k30_launches[name])
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [{

@@ -12,7 +12,9 @@ Tolerances. Metrics and sgd parameters: 1e-5 (float32 sums in another order
 through ~20 layers). Adam: its first update is ``lr * g / (|g| + 1e-8)``,
 which turns a relative error in a gradient into ``lr`` times that error, so
 an element whose gradient is within float32 noise of zero (below 1e-6 of the
-tree's largest) may differ by up to ``lr``; the others are held to 1e-5.
+tree's largest, and its two moments apart by more than 1e-3 of themselves)
+may differ by up to ``lr`` a step, and at the next step by its earlier error
+plus 1e-5; the others are held to 1e-5.
 Adam's moments: the two packages' gradients differ by float32 noise of up to
 2e-5 of the largest gradient (sums over the batch and 32x32 positions taken
 in another order), and so do the first moments.
@@ -188,14 +190,22 @@ def _tps_arrays(seed, b):
             f(b, 16, 2) * np.float32(0.02))
 
 
-def _setup(kind, loss_source, nan_guard=False, ema_decay=0.9):
+# The K=30 EMA final's own step (``final_ind_3x_k30_noisefeat_equi1_ema_60k``
+# in ``scripts/sweep_variants.yaml``): equivariance 1.0, parameter EMA 0.999,
+# no separation or entropy term.
+K30_FINAL = dict(n_landmarks=30, equi_weight=1.0, ema_decay=0.999, sep=None, ent=None)
+
+
+def _setup(kind, loss_source, nan_guard=False, ema_decay=0.9, n_landmarks=5, equi_weight=2.0,
+           sep=(0.5, 0.8), ent=(0.03, 1.0)):
     """The two packages' models, losses, optimizers and states on the same
-    weights, plus the injected inputs of one step."""
+    weights, plus the injected inputs of one step. The inputs' shapes do not
+    follow ``n_landmarks``: images, and TPS parameters on a 4x4 grid."""
     b = 4
     fields = dict(optimizer=kind, learning_rate=LR, lr_boundaries=(), lr_factors=(1.0,),
                   skip_nonfinite_updates=nan_guard, param_ema_decay=ema_decay)
-    jmodel, variables = jax_model()
-    model = port_model(variables).train()
+    jmodel, variables = jax_model(n_landmarks=n_landmarks)
+    model = port_model(variables, n_landmarks=n_landmarks).train()
     if loss_source == "random_vgg":
         lcfg = dict(feature_source="random_vgg", compute_dtype="float32", input_scale=2)
         jloss = JaxLoss(JaxLossConfig(**lcfg))
@@ -223,18 +233,20 @@ def _setup(kind, loss_source, nan_guard=False, ema_decay=0.9):
     ps, pt = _tps_arrays(13, b), _tps_arrays(14, b)
     return dict(jmodel=jmodel, model=model, jloss=jloss, loss=loss, jopt=jopt, opt=opt,
                 jstate=jstate, state=state, source=source, target=target, ps=ps, pt=pt,
-                nan_guard=nan_guard, ema_decay=ema_decay)
+                nan_guard=nan_guard, ema_decay=ema_decay, equi_weight=equi_weight, sep=sep,
+                ent=ent)
 
 
 def _run_both(s, source=None):
     source = s["source"] if source is None else source
-    extras = dict(sep=(0.5, 0.8), ent=(0.03, 1.0), ema_decay=s["ema_decay"], nan_guard=s["nan_guard"])
+    extras = dict(sep=s["sep"], ent=s["ent"], ema_decay=s["ema_decay"], nan_guard=s["nan_guard"])
     jequi = (jnp.asarray(source), jax_tps.TPSParams(*map(jnp.asarray, s["ps"])),
-             jax_tps.TPSParams(*map(jnp.asarray, s["pt"])), 4, 2.0)
+             jax_tps.TPSParams(*map(jnp.asarray, s["pt"])), 4, s["equi_weight"])
     s["jstate"], jm = jax_steps._single_step(
         s["jmodel"], s["jloss"], s["jopt"], s["jstate"], jnp.asarray(source),
         jnp.asarray(s["target"]), equi=jequi, **extras)
-    equi = (t(source), tps.TPSParams(*map(t, s["ps"])), tps.TPSParams(*map(t, s["pt"])), 4, 2.0)
+    equi = (t(source), tps.TPSParams(*map(t, s["ps"])), tps.TPSParams(*map(t, s["pt"])), 4,
+            s["equi_weight"])
     s["state"], m = steps._single_step(
         s["model"], s["loss"], s["opt"], s["state"], t(source), t(s["target"]), equi=equi, **extras)
     return m, jm
@@ -255,9 +267,25 @@ def _leaves(s):
     return got, want
 
 
-@pytest.mark.parametrize("loss_source", ["pixel", "random_vgg"])
-def test_single_step_sgd_matches_jax_leaf_by_leaf(loss_source):
-    s = _setup("sgd", loss_source)
+@pytest.mark.parametrize("case", [
+    dict(loss_source="pixel"),
+    dict(loss_source="random_vgg"),
+    dict(loss_source="pixel", n_landmarks=30),
+    dict(loss_source="random_vgg", n_landmarks=30),
+    # The K=30 EMA final's step, the random-VGG loss standing in for its
+    # trained trunk. Under sgd: the two packages' float32 reconstructions
+    # differ in their last bits, and the random VGG's gradient moves by far
+    # more than that under such a change of its input, in both packages
+    # alike (on one input they agree:
+    # test_random_vgg_loss_gradient_matches_jax_on_one_recon); Adam's first
+    # update, lr * g / (|g| + eps), turns that into sign flips.
+    dict(loss_source="random_vgg", **K30_FINAL),
+], ids=["pixel", "random_vgg", "pixel-k30", "random_vgg-k30", "k30_final"])
+def test_single_step_sgd_matches_jax_leaf_by_leaf(case):
+    _sgd_steps_match(_setup("sgd", **case))
+
+
+def _sgd_steps_match(s):
     before = {k: v.detach().clone() for k, v in _leaves(s)[0].items()}
     for step in range(2):  # step 0 seeds the loss EMA from the live terms; step 1 uses it
         m, jm = _run_both(s)
@@ -276,9 +304,62 @@ def test_single_step_sgd_matches_jax_leaf_by_leaf(loss_source):
     assert still <= {f"{c}/{SHIFT_INVARIANT}" for c in ("params", "ema")}, still
 
 
-def test_single_step_adam_matches_jax_leaf_by_leaf():
-    s = _setup("adam", "pixel")
+def test_random_vgg_loss_gradient_matches_jax_on_one_recon():
+    """The random-VGG loss's gradient in the reconstruction, term by term,
+    both packages on the same input: the port's reconstruction at the K=30
+    final's step."""
+    s = _setup("sgd", "random_vgg", **K30_FINAL)
+    jloss, loss = s["jloss"], s["loss"]
+    recon = n(s["model"](t(s["source"]), t(s["target"])).recon)
+    target = s["target"]
+    for i, name in enumerate(loss.names):
+        want = jax.grad(lambda r: jloss._raw_terms(r, jnp.asarray(target))[i])(jnp.asarray(recon))
+        r = t(recon).requires_grad_()
+        (got,) = torch.autograd.grad(loss._raw_terms(r, t(target))[i], r)
+        want = np.asarray(want)
+        np.testing.assert_allclose(n(got), want, atol=1e-5 * np.abs(want).max(), err_msg=name)
+
+
+@pytest.mark.parametrize("case,common_state", [
+    (dict(), False),
+    (dict(n_landmarks=30), False),
+    # The K=30 EMA final's step, the pixel loss standing in for its trunk.
+    # Its step 1 starts from JAX's state after step 0: there one decoder
+    # weight that Adam's first update moves by noise (9e-5 apart) moves the
+    # step-1 update of ~5,000 elements by more than 1e-5, in JAX alone as
+    # much as between the packages.
+    (K30_FINAL, True),
+], ids=["k5", "k30", "k30_final"])
+def test_single_step_adam_matches_jax_leaf_by_leaf(case, common_state):
+    _adam_steps_match(_setup("adam", "pixel", **case), common_state)
+
+
+def _load_jax_state(s):
+    """Give the port's state JAX's values: parameters, batch statistics,
+    Adam's moments, the parameter EMA and ``loss_ema``."""
+    jstate, state = s["jstate"], s["state"]
+    jadam = jstate.opt_state[0][0]
+    pairs = [(state.params, collection_from_flax(jstate.params)),
+             (state.batch_stats, collection_from_flax(jstate.batch_stats, "batch_stats")),
+             (state.opt_state["mu"], collection_from_flax(jadam.mu)),
+             (state.opt_state["nu"], collection_from_flax(jadam.nu))]
+    if state.ema_params is not None:
+        pairs.append((state.ema_params, collection_from_flax(jstate.ema_params)))
+    with torch.no_grad():
+        for dst, src in pairs:
+            for k, v in src.items():
+                dst[k].copy_(t(v))
+        state.loss_ema.copy_(t(jstate.loss_ema))
+
+
+def _adam_steps_match(s, common_state=False):
+    """Two Adam steps against JAX's; with ``common_state`` the second starts
+    from JAX's state after the first."""
+    prior = {}  # per leaf: the error of the elements excused at an earlier step
     for step in range(2):
+        if step and common_state:
+            _load_jax_state(s)
+            prior = {}
         old = {k: v.detach().clone() for k, v in s["state"].params.items()}
         m, jm = _run_both(s)
         for k in m:
@@ -294,10 +375,18 @@ def test_single_step_adam_matches_jax_leaf_by_leaf():
                 assert err.max() <= 1e-5, k
                 continue
             # elements whose first moment is float32 noise against the tree's
-            # largest: Adam's g / (|g| + eps) amplifies that noise up to lr
-            noisy = n(jmu[name].abs()) < 1e-6 * top * (10 if step else 1)
-            assert err[~noisy].max(initial=0.0) <= 1e-5, (k, err[~noisy].max())
-            assert err.max() <= 2 * LR * (step + 1), (k, err.max())
+            # largest, and shows it (the packages' moments differ by more than
+            # the moment check's rtol): Adam's g / (|g| + eps) amplifies that
+            # noise up to lr a step. A tiny moment that agrees is held to
+            # 1e-5; an element excused at step 0 keeps its error, and is held
+            # at step 1 to that error plus 1e-5.
+            want_mu = n(jmu[name])
+            noisy = ((np.abs(want_mu) < 1e-6 * top * (10 if step else 1))
+                     & (np.abs(n(s["state"].opt_state["mu"][name]) - want_mu) > 1e-3 * np.abs(want_mu)))
+            bound = np.where(noisy, 2 * LR * (step + 1), 1e-5 + prior.get(k, 0.0))
+            over = err > bound
+            assert not over.any(), (k, err[over].max(), bound[over].max())
+            prior[k] = np.where(noisy, err, prior.get(k, 0.0))
             if name != SHIFT_INVARIANT:  # whose true gradient is zero: all noise
                 assert noisy.mean() < 0.02, (k, noisy.mean())
         for k, v in s["state"].opt_state["mu"].items():
@@ -306,6 +395,26 @@ def test_single_step_adam_matches_jax_leaf_by_leaf():
                                        atol=1e-7 * top * top, err_msg=k)
         assert int(s["state"].opt_state["count"]) == step + 1
         assert all(not torch.equal(v, old[k]) for k, v in s["state"].params.items())
+
+
+@pytest.mark.parametrize("kind", ["sgd", "adam"])
+def test_k30_step_checks_catch_brighter_maps_past_landmark_ten(kind, monkeypatch):
+    """A planted fault at K=30 that K=5 cannot show: the port's Gaussian maps
+    of landmarks 11..30 1% brighter. The K=30 step checks above must fail."""
+    from imm_tpu_torch.models import imm
+
+    s = _setup(kind, "pixel", n_landmarks=30)
+    real = imm.landmark_bottleneck
+
+    def brighter(*args, **kwargs):
+        coords, maps = real(*args, **kwargs)
+        gain = torch.ones(maps.shape[-1])
+        gain[10:] = 1.01
+        return coords, maps * gain
+
+    monkeypatch.setattr(imm, "landmark_bottleneck", brighter)
+    with pytest.raises(AssertionError):
+        (_sgd_steps_match if kind == "sgd" else _adam_steps_match)(s)
 
 
 @pytest.mark.parametrize("kind", ["sgd", "adam"])
