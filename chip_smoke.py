@@ -64,7 +64,11 @@ B=128) through their entry points:
   ``run_variant`` at B=128 for one call of 40 steps, K1/K2/K3 2/2/2 a step
   at K=30, its final eval, then its step timed from the run's checkpoint
   beside ``synthetic_best``'s. Alone:
-  ``python3 -c 'import chip_smoke as s; s.device_phase(); s.build_phase(); s.k30_slice()'``.
+  ``python3 -c 'import chip_smoke as s; s.device_phase(); s.build_phase(); s.k30_slice()'``;
+- then ``temporal_k30``: the registry's temporal final
+  (``final_temporal_k30_equi1_60k``: temporal pairs of on-device faces,
+  the random-VGG loss, equivariance 1.0, parameter EMA) the same way, K1/K2/K3
+  2/2/1 a step. Alone: ``... s.temporal_k30_slice()``.
 
 It checks the launch counts and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
@@ -2059,72 +2063,115 @@ def resume_slice():
     return launches
 
 
-# k30: the registry's K=30 EMA final through the sweep runner's
-# ``run_variant`` for one call of its K30_STEPS steps (the gate's call), then
-# its step timed from the run's checkpoint, K30_TIMED calls after one.
+# k30 and temporal_k30: a registry final through the sweep runner's
+# ``run_variant`` for one call of its FINAL_STEPS steps (the gate's call),
+# then its step timed from the run's checkpoint, FINAL_TIMED calls after one.
 K30_VARIANT = "final_ind_3x_k30_noisefeat_equi1_ema_60k"
-K30_STEPS, K30_TIMED = 40, 2
+TEMPORAL_K30_VARIANT = "final_temporal_k30_equi1_60k"
+FINAL_STEPS, FINAL_TIMED = 40, 2
 
 
-def k30_slice(synthetic_best_p50: float | None = None):
-    """The K=30 gate's entry point on the card: ``sweep_tps.run_variant`` on
-    the registry's ``final_ind_3x_k30_noisefeat_equi1_ema_60k`` (B=128, the
-    variant's overrides, the trained trunk's ``.npz``) for one call, K1/K2/K3
-    launched 2/2/2 a step at (128, 16, 16, 30) plus K1 in its final eval of
-    the raw and the EMA parameters; then a fresh experiment restored from
-    its checkpoint takes a call whose metrics must be finite, and its step is
-    timed beside ``synthetic_best``'s p50 when the caller has it. -> the
-    run's launches."""
+def final_config(name: str):
+    """-> (the registry variant ``name``, the config its one smoke call of
+    FINAL_STEPS trains under, the sweep root under ``build/smoke/``)."""
+    from imm_tpu_torch.tools import sweep_tps
+
+    root = SMOKE / name
+    shutil.rmtree(root, ignore_errors=True)
+    variant = sweep_tps.registry()[name]
+    return variant, sweep_tps.variant_config(name, variant, FINAL_STEPS, root=str(root)), root
+
+
+def final_window(phase: str, name: str, variant, cfg, root: Path, warps_per_step: int,
+                 synthetic_best_p50: float | None, **fields):
+    """One call of the registry final ``name`` through ``sweep_tps.run_variant``,
+    K1/K2 launched twice a step and K3 ``warps_per_step`` times, plus K1 in
+    its final eval of the raw and the EMA parameters; then a fresh experiment
+    restored from its checkpoint takes a call whose metrics must be finite,
+    and its step is timed beside ``synthetic_best``'s p50 when the caller has
+    it. Emits ``phase`` with ``fields``; -> the run's launches."""
     import contextlib
     import io
 
     from imm_tpu_torch.experiment import build_experiment
     from imm_tpu_torch.tools import sweep_tps
 
-    root = SMOKE / "k30"
-    shutil.rmtree(root, ignore_errors=True)
-    variant = sweep_tps.registry()[K30_VARIANT]
-    n = K30_STEPS
-    cfg = sweep_tps.variant_config(K30_VARIANT, variant, n, root=str(root))
-    check((cfg.model.n_landmarks, cfg.model.image_size, cfg.train.batch_size, cfg.train.equi_weight,
-           cfg.train.param_ema_decay, cfg.train.ent_weight, cfg.loss.feature_source,
-           cfg.train.steps_per_call) == (30, 128, BATCH, 1.0, 0.999, 0.0, "trained", n),
-          f"not the K=30 final's config: {cfg}")
+    n = FINAL_STEPS
+    check(cfg.train.steps_per_call == n, f"{name}: {cfg.train.steps_per_call} steps a call")
+    torch.cuda.reset_peak_memory_stats()
     reset_kernel_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
-        rec = sweep_tps.run_variant(K30_VARIANT, variant, n, str(root / "k30.jsonl"), root=str(root))
+        rec = sweep_tps.run_variant(name, variant, n, str(root / f"{phase}.jsonl"), root=str(root))
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = kernel_counts()
     check(set(rec["final"]) == {f"landmark_error_{s}_pct{e}" for s in ("train", "test")
                                 for e in ("", "_ema")}
-          and all(math.isfinite(v) and v > 0 for v in rec["final"].values()), f"k30 record {rec}")
+          and all(math.isfinite(v) and v > 0 for v in rec["final"].values()), f"{phase} record {rec}")
     eval_calls = 2 * 2 * -(-cfg.eval_samples // 256)  # raw and EMA, two splits in chunks of 256
-    want = {"bottleneck_fwd": 2 * n + eval_calls, "bottleneck_bwd": 2 * n, "warp_fwd": 2 * n,
-            "warp_bwd": 0}
-    check(launches == want, f"k30 launches {launches}, expected {want}")
+    want = {"bottleneck_fwd": 2 * n + eval_calls, "bottleneck_bwd": 2 * n,
+            "warp_fwd": warps_per_step * n, "warp_bwd": 0}
+    check(launches == want, f"{phase} launches {launches}, expected {want}")
 
     exp = build_experiment(cfg, restore=True)
     state = exp.trainer.restore_or_init()
     check(exp.device.type == "cuda" and state.host_step == n == int(state.step)
-          and state.ema_params is not None, f"k30 restored at {state.host_step}")
+          and state.ema_params is not None, f"{phase} restored at {state.host_step}")
     gen = torch.Generator(exp.device).manual_seed(8)
     _, metrics = exp.step_fn(state, gen)
     metrics = {k: float(v) for k, v in metrics.items()}
     check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
     check(metrics.get("nonfinite_step", 0.0) == 0.0, "a step was skipped as non-finite")
-    check("loss/equi" in metrics and "loss/ent" not in metrics, f"k30 metrics {sorted(metrics)}")
-    p50, p90 = p50_p90(cuda_times(lambda: exp.step_fn(state, gen), reps=K30_TIMED, warmup=0))
+    check("loss/equi" in metrics and "loss/ent" not in metrics, f"{phase} metrics {sorted(metrics)}")
+    p50, p90 = p50_p90(cuda_times(lambda: exp.step_fn(state, gen), reps=FINAL_TIMED, warmup=0))
     p50, p90 = p50 / n, p90 / n
-    emit("k30", variant=K30_VARIANT, n_landmarks=30, batch=cfg.train.batch_size, steps=n,
+    emit(phase, variant=name, **fields, batch=cfg.train.batch_size, steps=n,
          launches=launches, launches_per_step={k: v / n for k, v in launches.items()},
          eval_k1_launches=eval_calls, final=rec["final"], run_s=run_s, wall_s=rec["wall_s"],
-         metrics=metrics, step_ms_p50=p50, step_ms_p90=p90, timed_calls=K30_TIMED,
+         metrics=metrics, step_ms_p50=p50, step_ms_p90=p90, timed_calls=FINAL_TIMED,
          synthetic_best_step_ms_p50=synthetic_best_p50,
          ratio_to_synthetic_best=None if synthetic_best_p50 is None else p50 / synthetic_best_p50,
          peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return launches
+
+
+def k30_slice(synthetic_best_p50: float | None = None):
+    """The K=30 gate's entry point on the card: ``sweep_tps.run_variant`` on
+    the registry's ``final_ind_3x_k30_noisefeat_equi1_ema_60k`` (B=128, the
+    variant's overrides, the trained trunk's ``.npz``) for one call, K1/K2/K3
+    launched 2/2/2 a step at (128, 16, 16, 30), then its step timed from the
+    run's checkpoint (``final_window``). -> the run's launches."""
+    variant, cfg, root = final_config(K30_VARIANT)
+    check((cfg.model.n_landmarks, cfg.model.image_size, cfg.train.batch_size, cfg.train.equi_weight,
+           cfg.train.param_ema_decay, cfg.train.ent_weight, cfg.loss.feature_source)
+          == (30, 128, BATCH, 1.0, 0.999, 0.0, "trained"), f"not the K=30 final's config: {cfg}")
+    return final_window("k30", K30_VARIANT, variant, cfg, root, 2, synthetic_best_p50,
+                        n_landmarks=30)
+
+
+def temporal_k30_slice(synthetic_best_p50: float | None = None):
+    """The temporal gate's entry point on the card: ``sweep_tps.run_variant``
+    on the registry's ``final_temporal_k30_equi1_60k`` (B=128, temporal
+    pairs of on-device blob faces from ``sample_pair``, the random-VGG loss
+    that ``feature_source='auto'`` resolves to without VGG16 weights) for one
+    call. Per step K1 and K2 run on the target and on the equivariance view,
+    K3 once for the view (``warp_view``: temporal pairs are not warped);
+    then its step timed from the run's checkpoint (``final_window``). -> the
+    run's launches."""
+    from imm_tpu_torch.losses.perceptual import resolve_source
+
+    variant, cfg, root = final_config(TEMPORAL_K30_VARIANT)
+    check((cfg.model.n_landmarks, cfg.model.image_size, cfg.train.batch_size, cfg.data.source,
+           cfg.data.pair_mode, cfg.data.temporal_pose_gap, cfg.train.equi_weight,
+           cfg.train.param_ema_decay, cfg.train.ent_weight)
+          == (30, 128, BATCH, "synthetic", "temporal", 0.0, 1.0, 0.999, 0.0),
+          f"not the temporal final's config: {cfg}")
+    source = resolve_source(cfg.loss)[0]
+    check(source == "random_vgg", f"the temporal final's loss resolved to {source!r}")
+    return final_window("temporal_k30", TEMPORAL_K30_VARIANT, variant, cfg, root, 1,
+                        synthetic_best_p50, n_landmarks=30, pair_mode="temporal",
+                        feature_source=source)
 
 
 KERNELS = (  # name, source, the TPU kernel it replaces
@@ -2187,6 +2234,9 @@ def main() -> int:
     # The K=30 gate's training path.
     with timed("k30"):
         k30_launches = k30_slice(synthetic_best_p50)
+    # The temporal gate's training path.
+    with timed("temporal_k30"):
+        temporal_k30_launches = temporal_k30_slice(synthetic_best_p50)
     PHASE_SECONDS["total"] = round(time.perf_counter() - t_start, 3)
     emit("phase_seconds", **PHASE_SECONDS)
 
@@ -2196,15 +2246,15 @@ def main() -> int:
     # data-parallel ranks' window (K1, K2, K3), the exported programs in
     # their child (K1), the tools (the two sweeps K1, K2, K3, the diagnostics
     # K1, the trunk trainer K3), the runs of the resume phase (K1, K2, K3),
-    # the bench's training runs (K1, K2, K3), the K=30 final's window (K1,
-    # K2, K3) and the warp-gradient path for K4.
+    # the bench's training runs (K1, K2, K3), the K=30 final's and the
+    # temporal final's windows (K1, K2, K3) and the warp-gradient path for K4.
     launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k] + dp_launches[k]
                 for k in train_launches}
     launches["bottleneck_fwd"] += serving["launches"] + export_k1_launches
     launches["warp_bwd"] = k4_launches
     for name, count in tools_launches.items():
         launches[name] += (count + resume_launches[name] + bench_launches[name]
-                           + k30_launches[name])
+                           + k30_launches[name] + temporal_k30_launches[name])
     for name, count in launches.items():
         check(count > 0, f"{name} was never launched on its path")
     print(json.dumps({"kernels": [{

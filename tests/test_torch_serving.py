@@ -1,7 +1,7 @@
 """The port's serving slice against the JAX package's, on the CPU: the
 entry points ``landmark_fn`` and ``swap_fn``, the synthetic faces on injected
-latents, the landmark-regression protocol, the config system and the
-``generate`` CLI.
+latents and ``sample_pair`` on injected draws, the landmark-regression
+protocol, the config system and the ``generate`` CLI.
 
 Tolerances: float32 model outputs atol 1e-4 (convs sum in another order);
 rendered faces atol 1e-5 (exp and clip on identical latents); the ridge
@@ -78,6 +78,61 @@ def test_synthetic_faces_match_jax_on_injected_latents(size):
     np.testing.assert_allclose(
         n(SyntheticBlobFaces.interocular(lm)), n(JaxFaces.interocular(lm_j)), atol=1e-6
     )
+
+
+def _pair_latent_draws(rng, batch, size, k=5):
+    """Unit draws of one ``sample_pair``, in the order both packages ask for
+    them: identity (colours, offsets, background), pose A and pose B (rot,
+    log-scale, centre), then each frame's pixel noise."""
+    u = lambda *s: rng.uniform(size=s).astype(np.float32)  # noqa: E731
+    g = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    pose = lambda: [("n", g(batch)), ("n", g(batch)), ("u", u(batch, 2))]  # noqa: E731
+    return ([("u", u(batch, 1 + k, 3)), ("n", g(batch, k, 2)), ("u", u(batch, 2, 3))]
+            + pose() + pose() + [("n", g(batch, size, size, 3)), ("n", g(batch, size, size, 3))])
+
+
+@pytest.mark.parametrize("gap", [0.0, 0.5])
+def test_sample_pair_matches_jax_on_injected_draws(monkeypatch, gap):
+    """``sample_pair`` (the temporal protocol's frames) against ``imm_tpu``'s
+    with both packages' uniform and normal draws replaced by the same numpy
+    draws: at gap 0 the poses are independent, at 0.5 frame B's pose is
+    interpolated toward a fresh draw (``_pose_near``, scale in log space)."""
+    from imm_tpu_torch.data import synthetic as port_synthetic
+
+    size, batch = 24, 3
+    draws = _pair_latent_draws(np.random.default_rng(31), batch, size)
+
+    ju = [a for k, a in draws if k == "u"]
+    jn = [a for k, a in draws if k == "n"]
+
+    def jax_uniform(key, shape=(), dtype=jnp.float32, minval=0.0, maxval=1.0):
+        return jnp.asarray(ju.pop(0)).reshape(shape) * (maxval - minval) + minval
+
+    def jax_normal(key, shape=(), dtype=jnp.float32):
+        return jnp.asarray(jn.pop(0)).reshape(shape)
+
+    monkeypatch.setattr(jax.random, "uniform", jax_uniform)
+    monkeypatch.setattr(jax.random, "normal", jax_normal)
+    want = JaxFaces(image_size=size, pair_pose_gap=gap).sample_pair(jax.random.PRNGKey(0), batch)
+    assert not ju and not jn
+
+    pq = list(draws)
+
+    def pop(kind, shape):
+        k, a = pq.pop(0)
+        assert k == kind and a.shape == tuple(shape), (k, kind, a.shape, shape)
+        return t(a)
+
+    monkeypatch.setattr(port_synthetic, "_uniform",
+                        lambda gen, shape, lo, hi: pop("u", shape) * (hi - lo) + lo)
+    monkeypatch.setattr(port_synthetic, "_normal", lambda gen, shape: pop("n", shape))
+    got = SyntheticBlobFaces(image_size=size, pair_pose_gap=gap).sample_pair(torch.Generator(), batch)
+    assert not pq and got.keys() == want.keys()
+    for name in ("a", "b"):
+        np.testing.assert_allclose(n(got[f"landmarks_{name}"]), n(want[f"landmarks_{name}"]), atol=1e-6)
+        np.testing.assert_allclose(n(got[f"image_{name}"]), n(want[f"image_{name}"]), atol=1e-5)
+    moved = np.abs(n(got["landmarks_b"]) - n(got["landmarks_a"])).max()
+    assert moved > 1e-3  # frame B is another pose at either gap
 
 
 @pytest.mark.parametrize("gap", [0.0, 0.5])
