@@ -1,0 +1,17 @@
+"""bottleneck_fwd_roofline: the bottleneck forward's share of its roofline: the
+least time of the calls of ``imm_tpu::bottleneck_fwd`` in the profiled slice
+(heatmaps read once, coords and maps written once, at the cell's shapes),
+over the device time of the kernels launched under the op, whatever
+implements it. Bound by bytes."""
+
+from bench_port.counts.bytes import bottleneck_fwd_s, bottleneck_shape
+
+OP = "imm_tpu::bottleneck_fwd"
+
+
+def read(ctx):
+    t = ctx.trace
+    if t is None or not t.op_device_s.get(OP):
+        return None
+    least = bottleneck_fwd_s(*bottleneck_shape(ctx.cell.config["model"], ctx.window["batch"]))
+    return 100.0 * least * t.op_calls[OP] / t.op_device_s[OP]
