@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from imm_tpu_torch.models.imm import IMM
+from imm_tpu_torch.utils.profiling import span
 
 
 class SwapForward(nn.Module):
@@ -36,7 +37,7 @@ def swap_fn(model: IMM):
     forward = SwapForward(model)
 
     def fn(appearance: torch.Tensor, pose: torch.Tensor) -> torch.Tensor:
-        with torch.inference_mode():
+        with span("imm.swap"), torch.inference_mode():
             return forward(appearance, pose)
 
     return fn

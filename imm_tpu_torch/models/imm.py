@@ -31,6 +31,7 @@ from imm_tpu_torch.models.nets import (
 from imm_tpu_torch.ops.fused import landmark_bottleneck
 from imm_tpu_torch.ops.gauss import render_gaussian_maps
 from imm_tpu_torch.utils.device import get_device
+from imm_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True, unsafe_hash=True)
@@ -128,9 +129,12 @@ class IMM(nn.Module):
 
     def forward(self, source: torch.Tensor, target: torch.Tensor) -> IMMOutputs:
         """Full forward: reconstruct ``target`` from content(source) + pose(target)."""
-        content = self.content_encoder(_nchw(source))
-        coords, heatmaps, gauss_maps = self._bottleneck(self.pose_encoder(_nchw(target)))
-        recon = self.decoder(torch.cat([content, gauss_maps], dim=1))
+        with span("imm.content_encoder"):
+            content = self.content_encoder(_nchw(source))
+        with span("imm.pose_encoder"):
+            coords, heatmaps, gauss_maps = self._bottleneck(self.pose_encoder(_nchw(target)))
+        with span("imm.decoder"):
+            recon = self.decoder(torch.cat([content, gauss_maps], dim=1))
         return IMMOutputs(
             recon=_nhwc(recon).float(),
             coords=coords,
@@ -141,21 +145,24 @@ class IMM(nn.Module):
 
     def encode_pose(self, image: torch.Tensor):
         """Landmarks only (the eval path): image -> (coords, heatmaps)."""
-        coords, heatmaps, _ = self._bottleneck(self.pose_encoder(_nchw(image)))
+        with span("imm.pose_encoder"):
+            coords, heatmaps, _ = self._bottleneck(self.pose_encoder(_nchw(image)))
         return coords, heatmaps
 
     def encode_content(self, image: torch.Tensor) -> torch.Tensor:
         """Image -> (B, h, w, C) content features in the compute dtype."""
-        return _nhwc(self.content_encoder(_nchw(image)))
+        with span("imm.content_encoder"):
+            return _nhwc(self.content_encoder(_nchw(image)))
 
     def generate(self, content: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
         """Decode from explicit content features + landmark coords (swap path)."""
         c = self.config
-        gauss_maps = render_gaussian_maps(
-            coords.float(), c.bottleneck_hw, inv_std=1.0 / c.gauss_std, mode=c.gauss_mode
-        ).to(c.dtype)
-        x = torch.cat([_nchw(content).to(c.dtype), _nchw(gauss_maps)], dim=1)
-        return _nhwc(self.decoder(x)).float()
+        with span("imm.decoder"):
+            gauss_maps = render_gaussian_maps(
+                coords.float(), c.bottleneck_hw, inv_std=1.0 / c.gauss_std, mode=c.gauss_mode
+            ).to(c.dtype)
+            x = torch.cat([_nchw(content).to(c.dtype), _nchw(gauss_maps)], dim=1)
+            return _nhwc(self.decoder(x)).float()
 
 
 def init_model(config: IMMConfig, seed: int = 0, device=None) -> IMM:

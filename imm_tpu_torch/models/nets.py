@@ -31,6 +31,7 @@ from torch import nn
 
 from imm_tpu_torch.ops.s2dconv import s2d_conv_nchw
 from imm_tpu_torch.parallel.mesh import all_reduce_mean, axis_group
+from imm_tpu_torch.utils.profiling import span
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -69,9 +70,11 @@ class SameConv2d(nn.Conv2d):
         kh, kw = self.kernel_size
         sh, sw = self.stride
         ph, pw = same_padding(x.shape[2], kh, sh), same_padding(x.shape[3], kw, sw)
-        x = F.pad(x.to(self.compute_dtype), (*pw, *ph))
-        bias = None if self.bias is None else self.bias.to(self.compute_dtype)
-        return F.conv2d(x, self.weight.to(self.compute_dtype), bias, self.stride)
+        with span("imm.conv_prep"):
+            x = F.pad(x.to(self.compute_dtype), (*pw, *ph))
+            bias = None if self.bias is None else self.bias.to(self.compute_dtype)
+            weight = self.weight.to(self.compute_dtype)
+        return F.conv2d(x, weight, bias, self.stride)
 
 
 class FlaxBatchNorm(nn.Module):
@@ -213,9 +216,10 @@ class ConvBlock(nn.Module):
             x = s2d_conv_nchw(x.to(dt), self.s2d_kernel.to(dt), self.s2d_block)
             if self.s2d_bias is not None:
                 x = x + self.s2d_bias.to(dt)[:, None, None]
-        if self.norm is not None:
-            x = self.norm(x)
-        return F.relu(x)
+        with span("imm.norm_relu"):
+            if self.norm is not None:
+                x = self.norm(x)
+            return F.relu(x)
 
 
 class EncoderTrunk(nn.Module):

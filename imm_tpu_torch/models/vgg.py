@@ -31,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imm_tpu_torch.utils.profiling import span
+
 # (block, width) per conv; perceptual taps marked with their names.
 _VGG_CFG: tuple[tuple[int, int], ...] = (
     (1, 64), (1, 64),
@@ -93,9 +95,10 @@ class VGG16Features(nn.Module):
                 x = F.max_pool2d(x, 2, 2)
                 prev_block = block
             conv = self.convs[name]
-            x = F.relu(F.conv2d(
-                x, conv.weight.to(self.compute_dtype), conv.bias.to(self.compute_dtype), padding=1
-            ))
+            with span("imm.conv_prep"):
+                weight = conv.weight.to(self.compute_dtype)
+                bias = conv.bias.to(self.compute_dtype)
+            x = F.relu(F.conv2d(x, weight, bias, padding=1))
             if name in self.taps:
                 outputs[name] = x.permute(0, 2, 3, 1).float()
             if len(outputs) == len(self.taps):

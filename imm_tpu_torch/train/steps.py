@@ -39,6 +39,7 @@ from imm_tpu_torch.ops.tps import tps_transform_points
 from imm_tpu_torch.parallel.mesh import Mesh, all_reduce_mean_flat
 from imm_tpu_torch.train.state import Optimizer, TrainState, make_optimizer
 from imm_tpu_torch.utils.config import TrainConfig
+from imm_tpu_torch.utils.profiling import span
 
 Metrics = dict[str, torch.Tensor]
 
@@ -146,36 +147,42 @@ def _single_step(
     stats = dict(model.named_buffers())
     old_stats = {k: v.clone() for k, v in stats.items()} if nan_guard else None
 
-    out = model(source, target)
-    total, new_ema, metrics = loss_fn(out.recon, target, state.loss_ema, state.host_step, mesh)
+    with span("imm.forward"):
+        out = model(source, target)
+    with span("imm.loss"):
+        total, new_ema, metrics = loss_fn(out.recon, target, state.loss_ema, state.host_step, mesh)
     metrics = dict(metrics)
     if equi is not None:
-        view, params_v, params_t, n_grid, w_equi = equi
-        # Extra pose pass on the auxiliary view; its BatchNorm statistics are
-        # discarded (the main pass owns the running stats).
-        with batch_stats_frozen(model):
-            view_coords, _ = model.encode_pose(view)
-        base_s = tps_transform_points(params_v, view_coords, n_grid)
-        base_t = (
-            out.coords if params_t is None
-            else tps_transform_points(params_t, out.coords, n_grid)
-        )
-        equi_loss = torch.mean(torch.sum(torch.square(base_s - base_t), dim=-1))
-        total = total + w_equi * equi_loss
-        metrics["loss/equi"] = equi_loss.detach()
-    if sep is not None:
-        w_sep, margin = sep
-        sep_loss = landmark_separation_loss(out.coords, margin)
-        total = total + w_sep * sep_loss
-        metrics["loss/sep"] = sep_loss.detach()
-    if ent is not None:
-        w_ent, temp = ent
-        ent_loss = marginal_entropy_loss(out.heatmaps, temp)
-        total = total + w_ent * ent_loss
-        metrics["loss/ent"] = ent_loss.detach()
+        with span("imm.equivariance"):
+            view, params_v, params_t, n_grid, w_equi = equi
+            # Extra pose pass on the auxiliary view; its BatchNorm statistics
+            # are discarded (the main pass owns the running stats).
+            with batch_stats_frozen(model):
+                view_coords, _ = model.encode_pose(view)
+            base_s = tps_transform_points(params_v, view_coords, n_grid)
+            base_t = (
+                out.coords if params_t is None
+                else tps_transform_points(params_t, out.coords, n_grid)
+            )
+            equi_loss = torch.mean(torch.sum(torch.square(base_s - base_t), dim=-1))
+            total = total + w_equi * equi_loss
+            metrics["loss/equi"] = equi_loss.detach()
+    if sep is not None or ent is not None:
+        with span("imm.regularizers"):
+            if sep is not None:
+                w_sep, margin = sep
+                sep_loss = landmark_separation_loss(out.coords, margin)
+                total = total + w_sep * sep_loss
+                metrics["loss/sep"] = sep_loss.detach()
+            if ent is not None:
+                w_ent, temp = ent
+                ent_loss = marginal_entropy_loss(out.heatmaps, temp)
+                total = total + w_ent * ent_loss
+                metrics["loss/ent"] = ent_loss.detach()
 
-    grad_list = torch.autograd.grad(total, list(params.values()), allow_unused=True)
-    with torch.no_grad():
+    with span("imm.backward"):
+        grad_list = torch.autograd.grad(total, list(params.values()), allow_unused=True)
+    with span("imm.update"), torch.no_grad():
         grads = {
             k: torch.zeros_like(p) if g is None else g
             for (k, p), g in zip(params.items(), grad_list)
@@ -226,10 +233,10 @@ def _single_step(
         metrics["loss/total"] = loss
         metrics["grad_norm"] = grad_sq**0.5
         state.step = state.step + 1
-    state.host_step += 1
-    state.opt_state = new_opt_state
-    state.loss_ema = new_ema
-    state.ema_params = new_ema_params
+        state.host_step += 1
+        state.opt_state = new_opt_state
+        state.loss_ema = new_ema
+        state.ema_params = new_ema_params
     return state, metrics
 
 
@@ -303,16 +310,18 @@ def _make_step(model, loss_fn, train_config, pair_synth, pair_mode, scan_steps, 
             return s, t, (view, pv, None, n_grid)
 
     def one(state, gen, batch, i):
-        source, target, equi = synth(gen, get_batch(gen, batch, i))
-        if equi is not None:
-            # scheduled on the live step, so windows of several steps and
-            # (later) resumed runs land on the same schedule position
-            equi = (*equi, equi_w(state.host_step))
-        return _single_step(
-            model, loss_fn, optimizer, state, source, target,
-            nan_guard=tc.skip_nonfinite_updates, mesh=mesh, equi=equi, sep=sep, ent=ent,
-            ema_decay=tc.param_ema_decay,
-        )
+        with span("imm.train_step"):
+            with span("imm.pairs"):
+                source, target, equi = synth(gen, get_batch(gen, batch, i))
+            if equi is not None:
+                # scheduled on the live step, so windows of several steps and
+                # (later) resumed runs land on the same schedule position
+                equi = (*equi, equi_w(state.host_step))
+            return _single_step(
+                model, loss_fn, optimizer, state, source, target,
+                nan_guard=tc.skip_nonfinite_updates, mesh=mesh, equi=equi, sep=sep, ent=ent,
+                ema_decay=tc.param_ema_decay,
+            )
 
     def step_fn(state, gen, batch=None):
         if scan_steps == 1:

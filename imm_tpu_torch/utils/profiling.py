@@ -1,15 +1,35 @@
-"""Profiling and timing on the GPU. Mirrors ``imm_tpu.utils.profiling``.
+"""The program's spans, and a steady-state throughput timer.
 
-- ``trace(log_dir)``: a context manager around ``torch.profiler`` that
-  writes a Chrome/Perfetto trace of what runs inside it to ``log_dir``.
-- ``timed_call``: median seconds per call from CUDA events recorded around
-  each call on the current stream. PyTorch returns before the device
-  finishes, so a host clock without a synchronisation times the enqueue.
+- ``span(name)``: a named range of the program (``imm.*``) in a running
+  ``torch.profiler`` trace. It is the only way the program opens one. While
+  a profiler records, it is ``torch.profiler.record_function(name)``: the
+  range lands in the profiler's own trace, on the clock the device's kernels
+  share, as a ``user_annotation`` event, and is written out only when the
+  caller exports the profile. With no profiler recording it is one shared
+  ``contextlib.nullcontext()``, behind a read of the flag the profiler sets
+  (well under a microsecond, where an idle ``record_function`` costs
+  microseconds): no op is dispatched, so a value computed under a span is
+  the value computed without it, and ``torch.export`` sees nothing of it.
 - ``throughput``: steady-state images per second of a ``(state, gen) ->
-  (state, metrics)`` step function.
+  (state, metrics)`` step function, timed with CUDA events; it needs a GPU
+  and raises without one (a time taken on the CPU is not a device time).
 
-The two timers need a GPU and raise without one: a time taken on the CPU is
-not a device time.
+The span names are a contract with the benchmark's readers
+(``bench_port/spans.py``):
+
+- ``imm.train_step``: one optimizer step, the root of a step's spans;
+  ``imm.pairs``: the face draw and pair synthesis; ``imm.forward``,
+  ``imm.loss``, ``imm.equivariance``, ``imm.regularizers``,
+  ``imm.backward`` (the host's wait in ``torch.autograd.grad``) and
+  ``imm.update`` (gradient norm, all-reduce, optimizer, parameter EMA,
+  NaN guard, copy back) in ``train/steps.py``;
+- ``imm.swap``: one ``swap_fn`` call (``eval/swap.py``);
+- ``imm.content_encoder``, ``imm.pose_encoder`` (with the bottleneck),
+  ``imm.decoder`` (with the Gaussian maps and the concat) in
+  ``models/imm.py``;
+- ``imm.norm_relu``: a conv block's norm and ReLU (``models/nets.py``);
+  ``imm.conv_prep``: what a convolution does before ``F.conv2d`` (the SAME
+  pad and the casts; ``models/nets.py``, ``models/vgg.py``).
 """
 
 from __future__ import annotations
@@ -19,17 +39,17 @@ import statistics
 from collections.abc import Callable
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+_OFF = contextlib.nullcontext()
 
 
-@contextlib.contextmanager
-def trace(log_dir: str):
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield
+def span(name: str):
+    """A context manager: the range ``name`` in a recording profiler's
+    trace, else nothing."""
+    if _autograd_profiler._is_profiler_enabled:
+        return torch.profiler.record_function(name)
+    return _OFF
 
 
 def _device_seconds(fn: Callable, *args):
@@ -44,19 +64,6 @@ def _device_seconds(fn: Callable, *args):
     return start.elapsed_time(end) / 1e3, out
 
 
-def _require_cuda() -> None:
-    if not torch.cuda.is_available():
-        raise RuntimeError("CUDA is not available: device timing needs an NVIDIA GPU")
-
-
-def timed_call(f: Callable, *args, warmup: int = 2, iters: int = 5) -> float:
-    """Median seconds per call of ``f(*args)`` on the device."""
-    _require_cuda()
-    for _ in range(warmup):
-        f(*args)
-    return statistics.median(_device_seconds(f, *args)[0] for _ in range(iters))
-
-
 def throughput(
     step: Callable, state, gen: torch.Generator, batch: int, scan_steps: int,
     iters: int = 5,
@@ -64,7 +71,8 @@ def throughput(
     """Steady-state images/sec of a ``(state, gen) -> (state, metrics)``
     step taking ``scan_steps`` steps of ``batch`` images a call, after two
     warm-up calls; -> (images/sec, the state after the last call)."""
-    _require_cuda()
+    if not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: device timing needs an NVIDIA GPU")
     for _ in range(2):
         state, _ = step(state, gen)
     times = []

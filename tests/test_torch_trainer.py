@@ -408,14 +408,20 @@ def test_tensorboard_is_optional(tmp_path, monkeypatch, caplog):
 # -- profiling -----------------------------------------------------------------------
 
 
-def test_profiling_timers_need_a_gpu_and_trace_writes_a_trace(tmp_path, monkeypatch):
+def test_profiling_timers_need_a_gpu_and_trace_writes_a_trace(monkeypatch):
+    """The throughput timer refuses the CPU; a span is written only into a
+    recording profiler's trace (``tests/test_torch_tracing.py`` holds the
+    spans of a step and a swap call)."""
+    from torch.profiler import ProfilerActivity, profile
+
     from imm_tpu_torch.utils import profiling
 
-    with profiling.trace(str(tmp_path / "trace")):
+    with profiling.span("imm.test"):
         torch.ones(64).sum()
-    assert list((tmp_path / "trace").glob("*.json"))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("imm.test"):
+            torch.ones(64).sum()
+    assert [e.name for e in prof.events() if e.name == "imm.test"] == ["imm.test"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        profiling.timed_call(torch.ones, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         profiling.throughput(lambda s, g: (s, {}), None, None, 8, 1)
