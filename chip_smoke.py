@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's four CUDA kernels and
+Run from the root of a checkout. It builds the port's five CUDA kernels and
 its nvJPEG shim from ``imm_tpu_torch/csrc/``, holds each kernel against its plain PyTorch version on the
-card, and drives the port's two main paths at full width (K=10, 128 px, bf16,
-B=128) through their entry points:
+card (K5, train-mode BatchNorm+ReLU, at the blocks' shapes), and drives the
+port's two main paths at full width (K=10, 128 px, bf16, B=128) through
+their entry points:
 
 - serving, preset ``swap``: landmark detector and pose swap, and
   ``cli.generate``;
@@ -32,7 +33,7 @@ B=128) through their entry points:
   ``cli.train --supervise``, whose child is killed after it resumed and is
   started again by the supervisor, resumes again and finishes;
 - then the last slice's phases: ``custom_ops`` (``torch.library.opcheck``
-  of the four kernels' custom ops at the main path's shapes, and the op's
+  of K1-K4's custom ops at the main path's shapes, and the op's
   dispatch cost on the host); ``data_parallel`` (two ``gloo`` ranks sharing
   the card: one ``synthetic_best`` step of 2 x 64 against 1 x 128, a window
   of the preset on each rank with its launches and the ranks' parameters
@@ -70,7 +71,9 @@ B=128) through their entry points:
   the random-VGG loss, equivariance 1.0, parameter EMA) the same way, K1/K2/K3
   2/2/1 a step. Alone: ``... s.temporal_k30_slice()``.
 
-It checks the launch counts and the outputs, times the paths and the kernels
+It checks the launch counts (K5's calls on every training path: 8 a
+train-mode trunk pass, 32 a step with the equivariance view and 24 without)
+and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
 dependent steps, and at K=30; the warp's backward also with every block on
 its direct path), and prints one JSON line per phase. The last two lines are
@@ -82,6 +85,7 @@ It imports nothing of JAX.
 from __future__ import annotations
 
 import ast
+import contextlib
 import copy
 import dataclasses
 import json
@@ -100,6 +104,7 @@ from pathlib import Path
 import torch
 
 from imm_tpu_torch.bench import p50_p90, times_ms
+from imm_tpu_torch.ops import kernel_counts, reset_kernel_counts
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -112,6 +117,13 @@ TOL_WARP_BF16 = 2.0**-6
 # gradients are sums of many products taken in another order (with atomics in
 # an order that changes from run to run): relative to the largest entry.
 TOL_GRAD_REL = 2e-5
+# K5 against its plain version computing in f32 on the same input: y and dx
+# one bf16 rounding of the largest value (f32 1e-5); the running statistics,
+# dweight and dbias 2e-5 of their scale (f32 sums of up to 2M values in
+# other orders)
+TOL_BN_SUMS_REL = 2e-5
+# (C, H = W) of the 128 px model's blocks, largest first
+BN_BLOCK_SHAPES = ((32, 128), (64, 64), (128, 32), (256, 16))
 SMOKE_STEPS_PER_CALL = 5  # the preset's 40, cut for the smoke
 SMOKE_CALLS = 3
 CKPT_STEPS, CKPT_EVERY = 16, 8  # one step a call: a save after the 8th and the 16th
@@ -201,7 +213,8 @@ def short_name(kernel: str) -> str:
 
 
 KINDS = (  # first match wins
-    ("port_kernels", ("bottleneck_fwd_kernel", "bottleneck_bwd_kernel", "warp_fwd_kernel", "warp_bwd_kernel")),
+    ("port_kernels", ("bottleneck_fwd_kernel", "bottleneck_bwd_kernel", "warp_fwd_kernel", "warp_bwd_kernel",
+                      "bn_stats", "bn_apply", "bn_finish", "bn_reduce", "bn_dx")),
     ("convolution", ("xmma", "convolve", "cudnn", "gemm", "wgrad", "dgrad", "fprop", "cutlass", "nhwcAddPadding", "nchwToNhwc", "nhwcToNchw")),
     ("batch_norm", ("batch_norm",)),
     ("reduction", ("reduce_kernel",)),
@@ -286,6 +299,13 @@ def warp_bwd_bound(b, h, w, c, ho, wo, itemsize):
                  b * ho * wo * (14 + 30 * c))
 
 
+def batch_norm_relu_bound(numel, itemsize, backward=False):
+    """Each activation byte once: forward x read and y written, backward dy
+    and x read and dx written; the statistics 3 operations an element and
+    normalise+ReLU 2, the two sums 6 and dx 5."""
+    return bound((3 if backward else 2) * itemsize * numel, (11 if backward else 5) * numel)
+
+
 def device_phase():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
@@ -317,7 +337,8 @@ def build_phase():
                if "registers" in ln or "spill" in ln]
         for name, path in libs.items() if path.with_suffix(".log").exists()
     }
-    check(set(libs) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd", "jpeg_decode"},
+    check(set(libs) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd",
+                        "batch_norm_relu_fwd", "batch_norm_relu_bwd", "jpeg_decode"},
           f"kernels built: {sorted(libs)}")
     emit("build", seconds=build_s, libraries=[p.name for p in libs.values()], ptxas=ptxas)
 
@@ -348,11 +369,12 @@ def kernel_checks(dev) -> dict[str, float]:
     absolute error seen per kernel."""
     from imm_tpu_torch.ops.fused import _bottleneck_reference, landmark_bottleneck
     from imm_tpu_torch.ops import warp
+    from imm_tpu_torch.ops.batchnorm import _batch_norm_relu_plain, batch_norm_relu
     from imm_tpu_torch.ops.image import bilinear_sample, normalized_grid
     from imm_tpu_torch.ops.warp import warp_bilinear
 
     gen = torch.Generator(dev).manual_seed(0)
-    errs = dict.fromkeys(("bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd"), 0.0)
+    errs = {name: 0.0 for name, _, _ in KERNELS}
 
     def record(kernel, err, tol, summary=True, **fields):
         """``summary=False`` keeps a result rounded to bf16 out of the
@@ -456,6 +478,51 @@ def kernel_checks(dev) -> dict[str, float]:
                 "ragged_output": 0.0, "tps_grid_synthetic_best": 0.0}.get(name)
         check(want is None or fields["direct_share"] == want,
               f"{name}: {fields['direct_share']} of the blocks took the direct path, expected {want}")
+
+    # BatchNorm+ReLU (K5) through its wrapper, forward and backward, at the
+    # blocks' shapes in bf16 channels-last as the model runs them, and one
+    # in f32 NCHW; against the plain version in f32 on the same input. The
+    # gradients are taken through the norm alone with the cotangent masked
+    # by the kernel's y > 0: an element whose pre-activation lies within
+    # rounding of 0 may fall on either side of the two ReLUs.
+    bn_cases = [(c, hw, torch.bfloat16, True) for c, hw in BN_BLOCK_SHAPES]
+    for c, hw, dtype, channels_last in bn_cases + [(64, 64, torch.float32, False)]:
+        fmt = torch.channels_last if channels_last else torch.contiguous_format
+        x = (torch.randn((BATCH, c, hw, hw), generator=gen, device=dev) * 1.5 + 0.5).to(dtype)
+        dy = torch.randn((BATCH, c, hw, hw), generator=gen, device=dev).to(dtype)
+        x, dy = x.contiguous(memory_format=fmt), dy.contiguous(memory_format=fmt)
+        w = torch.rand(c, generator=gen, device=dev) + 0.5
+        b = torch.randn(c, generator=gen, device=dev) * 0.3
+        rm, rv = torch.randn(c, generator=gen, device=dev), torch.rand(c, generator=gen, device=dev) + 0.5
+        xk, wk, bk = (t.clone().requires_grad_() for t in (x, w, b))
+        rm_k, rv_k = rm.clone(), rv.clone()
+        reset_kernel_counts()
+        y = batch_norm_relu(xk, wk, bk, rm_k, rv_k)
+        g_k = torch.autograd.grad(y, (xk, wk, bk), dy)
+        launched = kernel_counts()
+        xr, wr, br = (t.float().requires_grad_() for t in (x, w, b))
+        y_r = _batch_norm_relu_plain(x.float(), w, b, rm, rv, 0.9, 1e-5, True, None, True, torch.float32)
+        z = _batch_norm_relu_plain(xr, wr, br, rm.clone(), rv.clone(), 0.9, 1e-5, False, None, False,
+                                   torch.float32)
+        g_r = torch.autograd.grad(z, (xr, wr, br), dy.float() * (y > 0))
+        torch.cuda.synchronize()
+        check(launched == dict(dict.fromkeys(launched, 0), batch_norm_relu_fwd=1, batch_norm_relu_bwd=1),
+              f"K5 launches {launched}")
+        check(y.dtype == dtype and y.stride() == x.stride() and g_k[0].stride() == x.stride(),
+              f"K5 output {y.dtype} {y.stride()}, dx {g_k[0].stride()}, for x {dtype} {x.stride()}")
+        rounding = TOL_KERNEL if dtype == torch.float32 else 2.0**-8
+        fields = dict(shape=[BATCH, c, hw, hw], dtype=str(dtype), channels_last=channels_last)
+        for kernel, what, got, want, rel in (
+            ("batch_norm_relu_fwd", "y", y, y_r, rounding),
+            ("batch_norm_relu_fwd", "running_mean", rm_k, rm, TOL_BN_SUMS_REL),
+            ("batch_norm_relu_fwd", "running_var", rv_k, rv, TOL_BN_SUMS_REL),
+            ("batch_norm_relu_bwd", "dx", g_k[0], g_r[0], rounding),
+            ("batch_norm_relu_bwd", "dweight", g_k[1], g_r[1], TOL_BN_SUMS_REL),
+            ("batch_norm_relu_bwd", "dbias", g_k[2], g_r[2], TOL_BN_SUMS_REL),
+        ):
+            scale = want.abs().max().item() + (1.0 if what == "running_mean" else 0.0)
+            record(kernel, (got.float() - want).abs().max().item(), rel * max(scale, 1e-6),
+                   summary=got.dtype == torch.float32, output=what, **fields)
     return errs
 
 
@@ -469,7 +536,6 @@ def serving_slice(dev):
     from imm_tpu_torch.eval.export import landmark_fn
     from imm_tpu_torch.eval.swap import swap_fn
     from imm_tpu_torch.models.imm import IMM, init_model
-    from imm_tpu_torch.ops.fused import landmark_bottleneck
 
     config = get_preset("swap").model
     model = init_model(config, seed=0, device=dev)
@@ -486,11 +552,12 @@ def serving_slice(dev):
             model(app, pose)
     landmarks, swap = landmark_fn(model), swap_fn(model)
 
-    landmark_bottleneck.launches = 0
+    reset_kernel_counts()
     coords = landmarks(pose)
     swaps = swap(app, pose)
     torch.cuda.synchronize()
-    launches = landmark_bottleneck.launches
+    counts = kernel_counts()
+    launches = counts["bottleneck_fwd"]
     k, s = config.n_landmarks, config.image_size
     check(coords.shape == (BATCH, k, 2), f"coords shape {tuple(coords.shape)}")
     check(swaps.shape == (BATCH, s, s, 3), f"swaps shape {tuple(swaps.shape)}")
@@ -498,6 +565,7 @@ def serving_slice(dev):
     check(coords.abs().max().item() <= 1.0, "coords outside [-1, 1]")
     # one launch per encode_pose: landmark_fn once, swap_fn once
     check(launches == 2, f"bottleneck_fwd launched {launches} times on the serving path, expected 2")
+    check(sum(counts.values()) == launches, f"eval mode launched another kernel: {counts}")
 
     plain = IMM(dataclasses.replace(config, bottleneck_impl="xla")).to(dev)
     plain.load_state_dict(model.state_dict())
@@ -536,21 +604,31 @@ def serving_slice(dev):
                 swaps=swaps, coords=coords, swap_tol=swap_tol)
 
 
-def kernel_counts():
-    from imm_tpu_torch.ops.fused import landmark_bottleneck
-    from imm_tpu_torch.ops.warp import warp_bilinear
-
-    return {"bottleneck_fwd": landmark_bottleneck.launches,
-            "bottleneck_bwd": landmark_bottleneck.bwd_launches,
-            "warp_fwd": warp_bilinear.launches, "warp_bwd": warp_bilinear.bwd_launches}
+def k5_calls(trunk_passes: int) -> dict[str, int]:
+    """K5's forward and backward calls for ``trunk_passes`` train-mode passes
+    of 8 BatchNorm blocks: a step runs the content and the pose encoder and
+    the decoder, and the pose encoder again on the equivariance view."""
+    return {"batch_norm_relu_fwd": 8 * trunk_passes, "batch_norm_relu_bwd": 8 * trunk_passes}
 
 
-def reset_kernel_counts():
-    from imm_tpu_torch.ops.fused import landmark_bottleneck
-    from imm_tpu_torch.ops.warp import warp_bilinear
+@contextlib.contextmanager
+def plain_batch_norm():
+    """The models' train-mode BatchNorm+ReLU through its plain version, as
+    ``smoke_config(plain=True)`` takes the other kernels' (the config has no
+    switch for it)."""
+    from imm_tpu_torch.models import nets
+    from imm_tpu_torch.ops.batchnorm import _batch_norm_relu_plain
 
-    landmark_bottleneck.launches = landmark_bottleneck.bwd_launches = 0
-    warp_bilinear.launches = warp_bilinear.bwd_launches = 0
+    def plain(x, weight, bias, running_mean, running_var, *, momentum, eps, update_stats,
+              axis_name, relu, dtype):
+        return _batch_norm_relu_plain(x, weight, bias, running_mean, running_var, momentum, eps,
+                                      update_stats, axis_name, relu, dtype)
+
+    kernel, nets.batch_norm_relu = nets.batch_norm_relu, plain
+    try:
+        yield
+    finally:
+        nets.batch_norm_relu = kernel
 
 
 def smoke_config(steps_per_call: int, plain: bool = False):
@@ -600,9 +678,10 @@ def training_slice(dev):
     check(not torch.equal(state.loss_ema, ema_before), "loss_ema did not move")
     check(state.ema_params is None, "synthetic_best keeps no parameter EMA")
     # per optimizer step: K1 on the target and on the source view (equi), K2
-    # for each, K3 for source and target; the warp's backward is not on this path
+    # for each, K3 for source and target, K5 in 4 trunk passes; the warp's
+    # backward is not on this path
     want = {"bottleneck_fwd": 2 * n_steps, "bottleneck_bwd": 2 * n_steps,
-            "warp_fwd": 2 * n_steps, "warp_bwd": 0}
+            "warp_fwd": 2 * n_steps, "warp_bwd": 0, **k5_calls(4 * n_steps)}
     check(launches == want, f"launches on the training path {launches}, expected {want}")
 
     ev = exp.eval_fn(state)
@@ -613,7 +692,8 @@ def training_slice(dev):
          metrics=metrics, eval=ev, eval_samples=cfg.eval_samples)
 
     # One step from one state with one generator seed: kernel path against
-    # plain path. First the pair alone (K3 against bilinear_sample in place).
+    # plain path (K5's plain version patched in). First the pair alone (K3
+    # against bilinear_sample in place).
     faces = SyntheticBlobFaces(image_size=cfg.model.image_size)
     frames = faces.sample(torch.Generator(dev).manual_seed(3), BATCH)["image"]
     pair_k = PairSynthesizer(cfg.pair)(torch.Generator(dev).manual_seed(4), frames)
@@ -630,8 +710,11 @@ def training_slice(dev):
     reset_kernel_counts()
     _, m_k = exp_k.step_fn(exp_k.state, torch.Generator(dev).manual_seed(5))
     kernel_launches = kernel_counts()
-    _, m_p = exp_p.step_fn(exp_p.state, torch.Generator(dev).manual_seed(5))
+    with plain_batch_norm():
+        _, m_p = exp_p.step_fn(exp_p.state, torch.Generator(dev).manual_seed(5))
     torch.cuda.synchronize()
+    want = {"bottleneck_fwd": 2, "bottleneck_bwd": 2, "warp_fwd": 2, "warp_bwd": 0, **k5_calls(4)}
+    check(kernel_launches == want, f"the kernel path's step launched {kernel_launches}, expected {want}")
     check(kernel_counts() == kernel_launches, "the plain path launched a kernel")
     m_k = {k: v.item() for k, v in m_k.items()}
     m_p = {k: v.item() for k, v in m_p.items()}
@@ -748,7 +831,7 @@ def checkpoint_slice(dev):
     torch.cuda.synchronize()
     launches = kernel_counts()
     check(state2.host_step == CKPT_STEPS + 1, f"resumed run stopped at {state2.host_step}")
-    want = {"bottleneck_fwd": 2, "bottleneck_bwd": 2, "warp_fwd": 2, "warp_bwd": 0}
+    want = {"bottleneck_fwd": 2, "bottleneck_bwd": 2, "warp_fwd": 2, "warp_bwd": 0, **k5_calls(4)}
     check(launches == want, f"launches after the resume {launches}, expected {want}")
     metrics = exp2.trainer.history[-1]
     check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
@@ -893,6 +976,45 @@ def warp_grad_slice(dev):
     return launches["warp_bwd"]
 
 
+def k5_timed_calls(gen, dev, c, hw):
+    """K5's forward and backward launches on a (128, c, hw, hw) bf16
+    channels-last block -> {kernel: (call, plain call, library call, a
+    kernel each call launches once, bound)}: the plain version forward (bf16
+    in, f32 inside, as the model ran before K5) and its autograd backward;
+    as a yardstick only, PyTorch's BatchNorm primitives without the ReLU
+    (``batch_norm_stats`` + ``batch_norm_elemt``, ``batch_norm_backward_reduce``
+    + ``batch_norm_backward_elemt``)."""
+    from imm_tpu_torch.ops import batchnorm
+
+    x, dy = (torch.randn((BATCH, c, hw, hw), generator=gen, device=dev).bfloat16()
+             .contiguous(memory_format=torch.channels_last) for _ in range(2))
+    w, b = torch.rand(c, generator=gen, device=dev) + 0.5, torch.randn(c, generator=gen, device=dev)
+    rm, rv = torch.zeros(c, device=dev), torch.ones(c, device=dev)
+    _, stats = batchnorm._launch_fwd(x, w, b, rm, rv, 0.9, 1e-5, True, True, None)
+    xr, wr, br = (t.clone().requires_grad_() for t in (x, w, b))
+    plain_out = batchnorm._batch_norm_relu_plain(xr, wr, br, rm, rv, 0.9, 1e-5, True, None, True,
+                                                 torch.bfloat16)
+    mean, invstd = torch.batch_norm_stats(x, 1e-5)
+    count = torch.full((1,), x.numel() // c, dtype=torch.int32, device=dev)
+
+    def lib_bwd():
+        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(dy, x, mean, invstd, w, True, True, True)
+        return torch.batch_norm_backward_elemt(dy, x, mean, invstd, w, sum_dy, sum_dy_xmu, count)
+
+    return {
+        "batch_norm_relu_fwd": (
+            lambda: batchnorm._launch_fwd(x, w, b, rm, rv, 0.9, 1e-5, True, True, None),
+            lambda: batchnorm._batch_norm_relu_plain(x, w, b, rm, rv, 0.9, 1e-5, True, None, True,
+                                                     torch.bfloat16),
+            lambda: torch.batch_norm_elemt(x, w, b, *torch.batch_norm_stats(x, 1e-5), 1e-5),
+            "bn_apply", batch_norm_relu_bound(x.numel(), 2)),
+        "batch_norm_relu_bwd": (
+            lambda: batchnorm._launch_bwd(dy, x, w, b, stats, True, None),
+            lambda: torch.autograd.grad(plain_out, (xr, wr, br), dy, retain_graph=True),
+            lib_bwd, "bn_dx", batch_norm_relu_bound(x.numel(), 2, backward=True)),
+    }
+
+
 def timing_phases(dev, smi, serving, exp):
     """-> {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     import torch.nn.functional as F
@@ -1034,10 +1156,27 @@ def timing_phases(dev, smi, serving, exp):
             "all_direct_ms": profiled_device_ms(
                 lambda: warp._launch_bwd(img_d, grid_d, cot, footprint_floats=0), 20,
                 only="warp_bwd_kernel")}
+
+        # K5, bf16 channels-last, at the largest block shape and in ``extra``
+        # at each
+        whole = {}
+        for c, hw in BN_BLOCK_SHAPES:
+            row = {}
+            for name, (fn, plain_fn, lib_fn, complete, bound_at) in k5_timed_calls(gen, dev, c, hw).items():
+                row[name] = (profiled_device_ms(fn, complete=complete), profiled_device_ms(plain_fn, 10),
+                             *bound_at, profiled_device_ms(lib_fn))
+                whole.setdefault(name, (fn, plain_fn, 10))
+            if not timings.keys() & row.keys():  # the largest shape: the kernels line's row
+                timings.update(row)
+            for name, r in row.items():
+                extra.setdefault(name, {"dtype": "bfloat16", "layout": "channels_last", "by_shape": []})
+                extra[name]["by_shape"].append(dict(zip(
+                    ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"),
+                    ([BATCH, c, hw, hw], *r))))
         # the wrappers' whole device time (K4's includes zeroing d_images), and
         # per call with the host's issue time: 20 runs of 50 back-to-back calls
-        whole = {"bottleneck_fwd": (k1, k1_plain, 50), "bottleneck_bwd": (k2, k2_plain, 50),
-                 "warp_fwd": (k3, k3_plain, 10), "warp_bwd": (k4, k4_plain, 10)}
+        whole.update({"bottleneck_fwd": (k1, k1_plain, 50), "bottleneck_bwd": (k2, k2_plain, 50),
+                      "warp_fwd": (k3, k3_plain, 10), "warp_bwd": (k4, k4_plain, 10)})
         for name, (ms, plain_ms, bound_ms, bound_by, library_ms) in timings.items():
             fn, plain_fn, inner = whole[name]
             emit("kernel_timing", card=smi, kernel=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1240,9 +1379,9 @@ def host_data_slice(dev, smi, synthetic_best_p50):
     metrics = exp.trainer.history[-1]
     check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
     # per step: K1 and K2 on the target (the preset has no equivariance term,
-    # so no second pose pass), K3 for source and target
+    # so no second pose pass), K3 for source and target, K5 in 3 trunk passes
     want = {"bottleneck_fwd": n_steps, "bottleneck_bwd": n_steps,
-            "warp_fwd": 2 * n_steps, "warp_bwd": 0}
+            "warp_fwd": 2 * n_steps, "warp_bwd": 0, **k5_calls(3 * n_steps)}
     check(launches == want, f"launches on the host-fed path {launches}, expected {want}")
     ev = exp.eval_fn(state)
     check(bool(ev) and all(math.isfinite(v) and v > 0 for v in ev.values()), f"eval: {ev}")
@@ -1343,8 +1482,8 @@ def host_data_slice(dev, smi, synthetic_best_p50):
     decoded_tf = decode_jpeg_cuda.images - decoded_tf
     check(state_tf.host_step == 3 and all(math.isfinite(v) for v in exp_tf.trainer.history[-1].values()),
           f"tfdata route: {exp_tf.trainer.history[-1:]}")
-    check(tf_launches == {"bottleneck_fwd": 3, "bottleneck_bwd": 3, "warp_fwd": 6, "warp_bwd": 0},
-          f"launches on the tfdata route {tf_launches}")
+    check(tf_launches == {"bottleneck_fwd": 3, "bottleneck_bwd": 3, "warp_fwd": 6, "warp_bwd": 0,
+                          **k5_calls(9)}, f"launches on the tfdata route {tf_launches}")
     check(decoded_tf >= 3 * 64, f"the tfdata route decoded {decoded_tf} images with nvJPEG")
     del exp_tf
     emit("host_data_tfdata", preset="celeba_k10", steps=3, seconds_with_worker_start=tfdata_s,
@@ -1408,9 +1547,10 @@ def temporal_slice(dev, smi):
     metrics = exp.trainer.history[-1]
     check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
     # per step: K1 and K2 on the target and on the equivariance view; K3 only
-    # for the view (warp_view): temporal pairs are not warped
+    # for the view (warp_view): temporal pairs are not warped; K5 in 4 trunk
+    # passes
     want = {"bottleneck_fwd": 2 * n_steps, "bottleneck_bwd": 2 * n_steps,
-            "warp_fwd": n_steps, "warp_bwd": 0}
+            "warp_fwd": n_steps, "warp_bwd": 0, **k5_calls(4 * n_steps)}
     check(launches == want, f"launches on the temporal path {launches}, expected {want}")
     ev = exp.eval_fn(state)
     check(bool(ev) and all(math.isfinite(v) and v > 0 for v in ev.values()), f"eval: {ev}")
@@ -1433,7 +1573,7 @@ def generate_files_slice():
 
 
 def op_cases(dev):
-    """The four custom ops' arguments at the main path's shapes: K1 (with the
+    """The custom ops' arguments at the main path's shapes: K1 (with the
     gradient, so its autograd to K2 is checked) and K2 with and without the
     maps' cotangent on (128, 16, 16, 10) heatmaps; K3 (with the gradient:
     K4 behind it) and K4 on (128, 128, 128, 3) images at a
@@ -1457,7 +1597,7 @@ def op_cases(dev):
 
 
 def custom_ops_slice(dev, smi):
-    """``torch.library.opcheck`` of each kernel's custom op; and the host
+    """``torch.library.opcheck`` of K1-K4's custom ops; and the host
     time of one B=1 launch of K1 through the op against the same launch
     through its ``ctypes`` entry point alone (the op's dispatch cost)."""
     from imm_tpu_torch.ops import fused
@@ -1532,9 +1672,9 @@ def data_parallel_slice(dev, smi):
     check(diff["loss_rel"] <= TOL_DP_LOSS_REL and diff["param_rel"] <= TOL_DP_PARAM_REL,
           f"2 ranks x 64 against 1 x 128: loss {loss2} vs {loss1}, {diff}")
 
-    # the window: every rank launched K1/K2/K3 each step, and ended equal
+    # the window: every rank launched K1/K2/K3/K5 each step, and ended equal
     want = {"bottleneck_fwd": 2 * DP_STEPS, "bottleneck_bwd": 2 * DP_STEPS,
-            "warp_fwd": 2 * DP_STEPS, "warp_bwd": 0}
+            "warp_fwd": 2 * DP_STEPS, "warp_bwd": 0, **k5_calls(4 * DP_STEPS)}
     for w in windows:
         check(w["launches"] == want, f"rank {w['rank']} launched {w['launches']}, expected {want}")
         check(w["host_step"] == DP_WARMUP_STEPS + DP_STEPS and w["same_on_every_rank"],
@@ -1766,7 +1906,7 @@ BENCH_SCAN, BENCH_CALLS = 2, 2
 def bench_slice():
     """``python -m imm_tpu_torch.bench`` in both modes, in this process and
     with few calls: the entry point runs and its records are sound. Train:
-    the root bench's workload (no equivariance pass: K1/K2/K3 1/1/2 a step)
+    the root bench's workload (no equivariance pass: K1/K2/K3/K5 1/1/2/24 a step)
     bare, with its nested ``fullres_loss``, and with explicit loss options;
     its FLOPs and shares of peak; inference refuses the training options.
     Its timing is the smoke's own (``times_ms``), whose full readings are
@@ -1806,7 +1946,8 @@ def bench_slice():
         counts = kernel_counts()
         steps = workloads * (1 + bench.TRAIN_WARMUP + BENCH_CALLS) * BENCH_SCAN
         check(counts == {"bottleneck_fwd": steps, "bottleneck_bwd": steps, "warp_fwd": 2 * steps,
-                         "warp_bwd": 0}, f"bench {args}: launches {counts} for {steps} steps")
+                         "warp_bwd": 0, **k5_calls(3 * steps)},
+              f"bench {args}: launches {counts} for {steps} steps")
         records = [rec] + ([rec["fullres_loss"]] if workloads == 2 else [])
         check(("fullres_loss" in rec) == (workloads == 2), f"bench {args}: fullres_loss")
         check(rec["device"]["platform"] == "gpu" and rec["value"] > 0, f"bench {args}: {rec}")
@@ -1844,11 +1985,11 @@ def tools_slice():
     record, the registry's EMA final through ``run_variant`` (its record's
     EMA metrics and launches, its checkpoint's size), the diagnostics
     on the sweep's workdir (K1), the trunk trainer with the warp (K3 once a
-    step; it loads its ``.npz`` into the perceptual loss) and the oracle (no
-    kernel: its coordinates are the plain op, as in JAX). Each tool's
-    launches are counted from 0; their printed lines go to ``tools.log``
-    there. -> the launches of the sweeps, the diagnostics and the trunk
-    trainer."""
+    step; it loads its ``.npz`` into the perceptual loss) and the oracle (K5
+    in its pose encoder, no other kernel: its coordinates are the plain op,
+    as in JAX). Each tool's launches are counted from 0; their printed lines
+    go to ``tools.log`` there. -> the launches of the sweeps, the
+    diagnostics, the trunk trainer and the oracle."""
     import contextlib
     import io
 
@@ -1883,7 +2024,7 @@ def tools_slice():
     eval_calls = 2 * -(-cfg.eval_samples // 256)  # two splits in chunks of 256
     n = TOOLS_SWEEP_STEPS
     want = {"bottleneck_fwd": 2 * n + eval_calls, "bottleneck_bwd": 2 * n, "warp_fwd": 2 * n,
-            "warp_bwd": 0}
+            "warp_bwd": 0, **k5_calls(4 * n)}
     check(sweep_launches == want, f"sweep launches {sweep_launches}, expected {want}")
 
     proc = subprocess.run([sys.executable, "scripts/summarize_sweep.py", "--inp", str(record)],
@@ -1921,7 +2062,7 @@ def tools_slice():
         "--warp", "--corruption", "noise", "--steps", str(TOOLS_TRUNK_STEPS),
         "--batch", str(TOOLS_TRUNK_BATCH), "--out", str(npz)])
     check(trunk_launches == {"bottleneck_fwd": 0, "bottleneck_bwd": 0,
-                             "warp_fwd": trunk["steps"], "warp_bwd": 0},
+                             "warp_fwd": trunk["steps"], "warp_bwd": 0, **k5_calls(0)},
           f"train_features launches {trunk_launches}")
     # the tool loads its npz into the perceptual loss itself (trained_loss)
     check(all(math.isfinite(trunk[k]) for k in ("loss_first", "loss_last", "trained_loss"))
@@ -1933,7 +2074,9 @@ def tools_slice():
     check([r["name"] for r in oracle] == ["gt_parts", "supervised_k10"]
           and all(math.isfinite(r["test_pct"]) and r["test_pct"] > 0 for r in oracle),
           f"oracle records {oracle}")
-    check(sum(oracle_launches.values()) == 0, f"the oracle launched a kernel: {oracle_launches}")
+    check(oracle_launches == {"bottleneck_fwd": 0, "bottleneck_bwd": 0, "warp_fwd": 0,
+                              "warp_bwd": 0, **k5_calls(TOOLS_ORACLE_STEPS)},
+          f"the oracle launched {oracle_launches}")
     (root / "tools.log").write_text(printed.getvalue())
 
     emit("tools", variant=TOOLS_VARIANT, sweep_steps=n, sweep_final=rec["final"],
@@ -1950,7 +2093,7 @@ def tools_slice():
          oracle=oracle, oracle_call_s=oracle_s,
          oracle_ms_per_step_with_eval=1000 * oracle[-1]["wall_s"] / TOOLS_ORACLE_STEPS)
     return {k: sweep_launches[k] + ema_launches[k] + diag_launches[k] + trunk_launches[k]
-            for k in sweep_launches}
+            + oracle_launches[k] for k in sweep_launches}
 
 
 # resume: N steps a call, a save after each; 2N steps in one trainer against
@@ -1975,7 +2118,7 @@ def resume_slice():
     planted fault. Generator states after 2N equal bit for bit, parameters
     within ``TOL_RESUME_REL`` of the window's change, the fault far above;
     the checkpoint's bytes raw, under zlib and as ``tools.pieces`` packs it.
-    -> the kernels' launches (2/2/2 a step)."""
+    -> the kernels' launches (2/2/2/32 a step)."""
     import zlib
 
     from imm_tpu_torch.experiment import build_experiment
@@ -2037,7 +2180,7 @@ def resume_slice():
     launches = kernel_counts()
     steps = 7 * n  # 2N + 2N + N + N + N
     want = {"bottleneck_fwd": 2 * steps, "bottleneck_bwd": 2 * steps, "warp_fwd": 2 * steps,
-            "warp_bwd": 0}
+            "warp_bwd": 0, **k5_calls(4 * steps)}
     check(launches == want, f"resume launches {launches}, expected {want}")
 
     raw = (root / "pieces" / "checkpoints" / str(2 * n) / CHECKPOINT_FILE).read_bytes()
@@ -2085,7 +2228,8 @@ def final_config(name: str):
 def final_window(phase: str, name: str, variant, cfg, root: Path, warps_per_step: int,
                  synthetic_best_p50: float | None, **fields):
     """One call of the registry final ``name`` through ``sweep_tps.run_variant``,
-    K1/K2 launched twice a step and K3 ``warps_per_step`` times, plus K1 in
+    K1/K2 launched twice a step, K3 ``warps_per_step`` times and K5 32 times,
+    plus K1 in
     its final eval of the raw and the EMA parameters; then a fresh experiment
     restored from its checkpoint takes a call whose metrics must be finite,
     and its step is timed beside ``synthetic_best``'s p50 when the caller has
@@ -2111,7 +2255,7 @@ def final_window(phase: str, name: str, variant, cfg, root: Path, warps_per_step
           and all(math.isfinite(v) and v > 0 for v in rec["final"].values()), f"{phase} record {rec}")
     eval_calls = 2 * 2 * -(-cfg.eval_samples // 256)  # raw and EMA, two splits in chunks of 256
     want = {"bottleneck_fwd": 2 * n + eval_calls, "bottleneck_bwd": 2 * n,
-            "warp_fwd": warps_per_step * n, "warp_bwd": 0}
+            "warp_fwd": warps_per_step * n, "warp_bwd": 0, **k5_calls(4 * n)}
     check(launches == want, f"{phase} launches {launches}, expected {want}")
 
     exp = build_experiment(cfg, restore=True)
@@ -2179,6 +2323,10 @@ KERNELS = (  # name, source, the TPU kernel it replaces
     ("bottleneck_bwd", "imm_tpu_torch/csrc/bottleneck_bwd.cu", "imm_tpu/ops/fused.py:111"),
     ("warp_fwd", "imm_tpu_torch/csrc/warp_fwd.cu", "imm_tpu/ops/warp_pallas.py:59"),
     ("warp_bwd", "imm_tpu_torch/csrc/warp_bwd.cu", "imm_tpu/ops/warp_pallas.py:129"),
+    ("batch_norm_relu_fwd", "imm_tpu_torch/csrc/batch_norm_relu.cu",
+     "none: XLA fused flax's nn.BatchNorm (imm_tpu/models/nets.py:83) and the ReLU"),
+    ("batch_norm_relu_bwd", "imm_tpu_torch/csrc/batch_norm_relu.cu",
+     "none: XLA fused the gradient of flax's nn.BatchNorm and the ReLU"),
 )
 
 
@@ -2242,12 +2390,13 @@ def main() -> int:
 
     # Launches on the main paths, each read right after its own run with the
     # counts set to 0 just before: serving (K1) plus training on on-device
-    # data, on image files and on temporal pairs (K1, K2, K3), the two
-    # data-parallel ranks' window (K1, K2, K3), the exported programs in
-    # their child (K1), the tools (the two sweeps K1, K2, K3, the diagnostics
-    # K1, the trunk trainer K3), the runs of the resume phase (K1, K2, K3),
-    # the bench's training runs (K1, K2, K3), the K=30 final's and the
-    # temporal final's windows (K1, K2, K3) and the warp-gradient path for K4.
+    # data, on image files and on temporal pairs (K1, K2, K3, K5), the two
+    # data-parallel ranks' window (K1, K2, K3, K5), the exported programs in
+    # their child (K1), the tools (the two sweeps K1, K2, K3, K5, the
+    # diagnostics K1, the trunk trainer K3, the oracle K5), the runs of the
+    # resume phase, the bench's training runs and the K=30 final's and the
+    # temporal final's windows (K1, K2, K3, K5) and the warp-gradient path
+    # for K4.
     launches = {k: train_launches[k] + host_launches[k] + temporal_launches[k] + dp_launches[k]
                 for k in train_launches}
     launches["bottleneck_fwd"] += serving["launches"] + export_k1_launches

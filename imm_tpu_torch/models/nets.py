@@ -29,8 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from imm_tpu_torch.ops.batchnorm import batch_norm_relu
 from imm_tpu_torch.ops.s2dconv import s2d_conv_nchw
-from imm_tpu_torch.parallel.mesh import all_reduce_mean, axis_group
 from imm_tpu_torch.utils.profiling import span
 
 # std of a standard normal truncated to [-2, 2] (flax's variance_scaling)
@@ -118,21 +118,17 @@ class FlaxBatchNorm(nn.Module):
                 x, self.running_mean, self.running_var, self.weight, self.bias,
                 False, 0.0, self.eps,
             ).to(self.compute_dtype)
-        xf = x.float()
-        if self.axis_name is None:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = xf.var(dim=(0, 2, 3), unbiased=False)
-        else:
-            local = torch.cat([xf.mean(dim=(0, 2, 3)), xf.square().mean(dim=(0, 2, 3))])
-            mean, mean_sq = all_reduce_mean(local, axis_group(self.axis_name)).chunk(2)
-            var = torch.clamp(mean_sq - mean.square(), min=0.0)
-        if self.update_stats:
-            with torch.no_grad():
-                self.running_mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
-                self.running_var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
-        scale = self.weight * torch.rsqrt(var + self.eps)
-        y = (xf - mean[:, None, None]) * scale[:, None, None] + self.bias[:, None, None]
-        return y.to(self.compute_dtype)
+        return self.forward_train(x)
+
+    def forward_train(self, x, relu=False):
+        """Train mode, with the ReLU fused when ``relu``
+        (``ops.batchnorm.batch_norm_relu``: the plain version on the CPU, the
+        K5 kernels on the card)."""
+        return batch_norm_relu(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            momentum=self.momentum, eps=self.eps, update_stats=self.update_stats,
+            axis_name=self.axis_name, relu=relu, dtype=self.compute_dtype,
+        )
 
 
 @contextlib.contextmanager
@@ -217,6 +213,8 @@ class ConvBlock(nn.Module):
             if self.s2d_bias is not None:
                 x = x + self.s2d_bias.to(dt)[:, None, None]
         with span("imm.norm_relu"):
+            if isinstance(self.norm, FlaxBatchNorm) and self.norm.training:
+                return self.norm.forward_train(x, relu=True)
             if self.norm is not None:
                 x = self.norm(x)
             return F.relu(x)

@@ -1,9 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each source in ``imm_tpu_torch/csrc/`` exposes a plain C entry point. It is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``build/kernels/`` of the checkout (git-ignored) at first use, and loaded
-with ``ctypes``. The host shims (``SHIMS``: the nvJPEG decoder) are built the
+Each source in ``imm_tpu_torch/csrc/`` exposes a plain C entry point for each
+kernel that names it (``batch_norm_relu.cu`` two). It is compiled by ``nvcc``
+for ``sm_90a`` into one shared library under ``build/kernels/`` of the
+checkout (git-ignored) at first use, and loaded with ``ctypes``. The host shims (``SHIMS``: the nvJPEG decoder) are built the
 same way, with the toolkit libraries they link. The library's name carries a hash of its source and flags,
 so an edited source is rebuilt and a built one is reused. Nothing is built
 when this module is imported.
@@ -48,6 +48,16 @@ KERNELS = {
         "warp_bwd.cu",
         ((_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P), ctypes.c_int),
     ),
+    "batch_norm_relu_fwd": (
+        "batch_norm_relu.cu",
+        ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _P),
+         ctypes.c_int),
+    ),
+    "batch_norm_relu_bwd": (
+        "batch_norm_relu.cu",
+        ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+         ctypes.c_int),
+    ),
 }
 
 # host shim name -> (source file, libraries it links, {C function: signature})
@@ -80,11 +90,12 @@ def _source_and_libs(name: str) -> tuple[str, tuple[str, ...]]:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel or shim ``name``'s library lives once built."""
+    """Where kernel or shim ``name``'s library lives once built: named after
+    its source, so kernels of one source share one library."""
     source, libs = _source_and_libs(name)
     flags = " ".join(NVCC_FLAGS + libs).encode()
     digest = hashlib.sha256((CSRC / source).read_bytes() + flags)
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:12]}.so"
 
 
 def build(names=None) -> dict[str, Path]:
@@ -97,7 +108,10 @@ def build(names=None) -> dict[str, Path]:
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
-    todo = {n: p for n, p in paths.items() if not p.exists()}
+    todo = {}  # one build a library, under the first name that needs it
+    for n, p in paths.items():
+        if not p.exists() and p not in todo.values():
+            todo[n] = p
     if not todo:
         return paths
     nvcc = _nvcc()

@@ -250,8 +250,7 @@ def experiment_worker(inputs_path: str, device) -> None:
     config with a workdir resumes from its latest checkpoint: a piece of a
     run."""
     from imm_tpu_torch.experiment import build_experiment
-    from imm_tpu_torch.ops.fused import landmark_bottleneck
-    from imm_tpu_torch.ops.warp import warp_bilinear
+    from imm_tpu_torch.ops import kernel_counts, reset_kernel_counts
 
     inputs = torch.load(inputs_path, weights_only=False)
     warmup, steps = inputs.get("warmup_steps", 0), inputs["steps"]
@@ -263,17 +262,14 @@ def experiment_worker(inputs_path: str, device) -> None:
     elif exp.config.workdir:
         exp.state = exp.trainer.restore_or_init()
     exp.trainer.total_steps = warmup + steps
-    landmark_bottleneck.launches = landmark_bottleneck.bwd_launches = 0
-    warp_bilinear.launches = warp_bilinear.bwd_launches = 0
+    reset_kernel_counts()
     sync = torch.cuda.synchronize if exp.device.type == "cuda" else (lambda: None)
     sync()
     t0 = time.perf_counter()
     state = exp.trainer.run()
     sync()
     seconds = time.perf_counter() - t0
-    launches = {"bottleneck_fwd": landmark_bottleneck.launches,
-                "bottleneck_bwd": landmark_bottleneck.bwd_launches,
-                "warp_fwd": warp_bilinear.launches, "warp_bwd": warp_bilinear.bwd_launches}
+    launches = kernel_counts()
     tensors = list(exp.model.state_dict().values())
     torch.save({
         "rank": exp.mesh.rank, "world": exp.mesh.size, "host_step": state.host_step,

@@ -4,7 +4,12 @@ These need an NVIDIA GPU with ``nvcc`` (sm_90a); elsewhere they skip. Run on
 the card, where JAX is absent, without ``tests/conftest.py`` (it imports JAX):
 ``python -m pytest tests/test_torch_kernels.py -q --noconftest``.
 
-Tolerances. Bottleneck forward and backward, warp forward: 1e-5 (float32):
+Tolerances. BatchNorm+ReLU (K5), against its plain version computing in
+float32 from the same bf16 input: y and dx one bf16 rounding (2^-8 of the
+value; dx 2^-8 of the largest |dx|, where the two formulas cancel
+differently); mean, invstd, the running statistics, dgamma and dbeta 2e-5
+relative to their scale (f32 sums of up to 2M values in other orders).
+Bottleneck forward and backward, warp forward: 1e-5 (float32):
 kernel and plain version differ only in ``expf`` against ``torch.exp``,
 summation order, fused multiply-adds and the ruler's last bit. Warp backward:
 2e-5 of the reference's largest entry: both sum many products, the kernel
@@ -17,6 +22,8 @@ import dataclasses
 import pytest
 import torch
 
+from imm_tpu_torch.ops import batchnorm
+from imm_tpu_torch.ops.batchnorm import _batch_norm_relu_plain, batch_norm_relu
 from imm_tpu_torch.ops.fused import _bottleneck_reference, landmark_bottleneck
 from imm_tpu_torch.ops.image import bilinear_sample, normalized_grid
 from imm_tpu_torch.ops.warp import warp_bilinear
@@ -430,3 +437,252 @@ def test_exported_landmarker_runs_k1_on_the_card(dev, tmp_path):
     torch.cuda.synchronize()
     assert landmark_bottleneck.launches == before + 1
     torch.testing.assert_close(got, landmark_fn(model)(img), rtol=0, atol=1e-5)
+
+
+# K5: the encoders' and the decoder's block shapes (C, H = W) at 128 px
+BLOCK_SHAPES = [(32, 128), (64, 64), (128, 32), (256, 16)]
+
+
+def _bn_inputs(dev, n, c, hw, channels_last, dtype=torch.bfloat16, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    fmt = torch.channels_last if channels_last else torch.contiguous_format
+    x = (torch.randn((n, c, hw, hw), generator=gen, device=dev) * 1.5 + 0.5).to(dtype)
+    dy = torch.randn((n, c, hw, hw), generator=gen, device=dev).to(dtype)
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.randn(c, generator=gen, device=dev) * 0.3
+    rm = torch.randn(c, generator=gen, device=dev)
+    rv = torch.rand(c, generator=gen, device=dev) + 0.5
+    return x.contiguous(memory_format=fmt), dy.contiguous(memory_format=fmt), w, b, rm, rv
+
+
+def _bn_reference(x, dy, w, b, rm, rv, update_stats=True, axis_name=None, mask=None):
+    """The plain version in float32 on the same (rounded) input: y, running
+    statistics, (mean, invstd), and dx, dweight, dbias for the cotangent.
+    An element whose pre-activation lies within rounding of 0 may fall on
+    either side of the ReLU in two implementations, and one such element
+    moves dx there by a whole cotangent: the gradients are taken through
+    the norm alone, with the cotangent masked by ``mask`` (the kernel's
+    y > 0)."""
+    xr, wr, br = (t.detach().float().requires_grad_() for t in (x, w, b))
+    rm, rv = rm.clone(), rv.clone()
+    y = _batch_norm_relu_plain(xr.detach(), w, b, rm, rv, 0.9, 1e-5, update_stats, axis_name, True,
+                               torch.float32)
+    z = _batch_norm_relu_plain(xr, wr, br, rm.clone(), rv.clone(), 0.9, 1e-5, False, axis_name,
+                               False, torch.float32)
+    grads = torch.autograd.grad(z, (xr, wr, br), dy.float() * mask)
+    xf = xr.detach()
+    mean = xf.mean(dim=(0, 2, 3))
+    if axis_name is None:
+        var = xf.var(dim=(0, 2, 3), unbiased=False)
+    else:
+        var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0.0)
+    return y, rm, rv, torch.stack([mean, torch.rsqrt(var + 1e-5)]), grads
+
+
+def _close(got, want, rel, scale=None):
+    scale = want.abs().max().item() if scale is None else scale
+    err = (got.float() - want).abs().max().item()
+    assert err <= rel * max(scale, 1e-6), (err, rel, scale)
+
+
+def _bn_kernel_run(x, dy, w, b, rm, rv, update_stats=True, axis_name=None):
+    xk, wk, bk = (t.detach().clone().requires_grad_() for t in (x, w, b))
+    rmk, rvk = rm.clone(), rv.clone()
+    before = (batch_norm_relu.launches, batch_norm_relu.bwd_launches)
+    y = batch_norm_relu(xk, wk, bk, rmk, rvk, update_stats=update_stats, axis_name=axis_name)
+    grads = torch.autograd.grad(y, (xk, wk, bk), dy)
+    torch.cuda.synchronize()
+    assert (batch_norm_relu.launches, batch_norm_relu.bwd_launches) == (before[0] + 1, before[1] + 1)
+    return y, rmk, rvk, grads
+
+
+def _bn_compare(x, dy, w, b, rm, rv, update_stats=True, axis_name=None):
+    """The kernels against the plain version; -> the reference's (mean,
+    invstd)."""
+    y, rm_k, rv_k, (dx, dw, db) = _bn_kernel_run(x, dy, w, b, rm, rv, update_stats, axis_name)
+    y_r, rm_r, rv_r, stats_r, (dx_r, dw_r, db_r) = _bn_reference(
+        x, dy, w, b, rm, rv, update_stats, axis_name, mask=(y > 0).float())
+    assert y.dtype == x.dtype and y.stride() == x.stride() and dx.stride() == x.stride()
+    _close(y, y_r, 2.0**-8)
+    _close(rm_k, rm_r, 2e-5, 1.0 + rm_r.abs().max().item())
+    _close(rv_k, rv_r, 2e-5)
+    _close(dx, dx_r, 2.0**-8)
+    _close(dw, dw_r, 2e-5)
+    _close(db, db_r, 2e-5)
+    if x.dtype == torch.float32:
+        _close(y, y_r, 1e-5)
+        _close(dx, dx_r, 1e-5)
+    return stats_r
+
+
+@pytest.mark.parametrize("batch", [128, 2])
+@pytest.mark.parametrize("c,hw", BLOCK_SHAPES)
+@pytest.mark.parametrize("channels_last", [True, False], ids=["nhwc", "nchw"])
+def test_batch_norm_relu_matches_plain(dev, c, hw, batch, channels_last):
+    """Forward, running statistics, (mean, invstd) and the three gradients
+    at the blocks' shapes, both layouts."""
+    x, dy, w, b, rm, rv = _bn_inputs(dev, batch, c, hw, channels_last)
+    stats_r = _bn_compare(x, dy, w, b, rm, rv)
+    _, stats = batchnorm._launch_fwd(x, w, b, rm.clone(), rv.clone(), 0.9, 1e-5, True, True,
+                                             None)
+    _close(stats[0], stats_r[0], 2e-5, stats_r[1].reciprocal().max().item())
+    _close(stats[1], stats_r[1], 2e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 24, 5, 5), (2, 88, 3, 3), (3, 8, 1, 1), (2, 16, 3, 3)],
+                         ids=["three_lanes", "one_lane", "one_pixel", "odd_plane"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_relu_odd_shapes_and_float32(dev, shape, dtype):
+    """Channel counts whose groups are not 64 wide, a 1 x 1 map, NCHW planes
+    without 16-byte groups (channels-last and NCHW each), in both dtypes."""
+    n, c, hw, _ = shape
+    for channels_last in (True, False):
+        _bn_compare(*_bn_inputs(dev, n, c, hw, channels_last, dtype, seed=1))
+
+
+def test_batch_norm_relu_with_update_stats_off(dev):
+    x, dy, w, b, rm, rv = _bn_inputs(dev, 8, 64, 32, True)
+    y_on, _, _, grads_on = _bn_kernel_run(x, dy, w, b, rm, rv)
+    y, rm_k, rv_k, grads = _bn_kernel_run(x, dy, w, b, rm, rv, update_stats=False)
+    assert torch.equal(rm_k, rm) and torch.equal(rv_k, rv)
+    assert torch.equal(y, y_on)
+    for a, b_ in zip(grads, grads_on):
+        assert torch.equal(a, b_)
+
+
+def test_batch_norm_relu_repeats_bit_for_bit(dev):
+    """Fixed-order sums: two calls give the same bits."""
+    x, dy, w, b, rm, rv = _bn_inputs(dev, 128, 128, 32, True)
+    first = _bn_kernel_run(x, dy, w, b, rm, rv)
+    second = _bn_kernel_run(x, dy, w, b, rm, rv)
+    for a, b_ in zip((first[0], first[1], first[2], *first[3]),
+                     (second[0], second[1], second[2], *second[3])):
+        assert torch.equal(a, b_)
+
+
+def test_batch_norm_relu_axis_name_in_a_world_of_one(dev, monkeypatch):
+    """``axis_name`` set: flax's E[x^2] - E[x]^2, in a gloo world of one;
+    then the staged path (local statistics, all-reduce, finish; sums,
+    all-reduce, dx) that several ranks take, on the same group, against it."""
+    import socket
+
+    import torch.distributed as dist
+
+    from imm_tpu_torch.parallel.mesh import Mesh
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        inputs = _bn_inputs(dev, 32, 64, 32, True, seed=2)
+        _bn_compare(*inputs, axis_name="data")
+        monkeypatch.setattr(batchnorm, "axis_group", lambda name: Mesh(dist.group.WORLD, 0, 1))
+        _bn_compare(*inputs, axis_name="data")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_batch_norm_relu_keeps_the_variance_where_the_mean_is_large(dev):
+    """Shifted sums: at a mean 60 spreads from zero the variance keeps a
+    two-pass one's quality against float64 (E[x^2] - E[x]^2 in float32
+    would lose three digits)."""
+    gen = torch.Generator(dev).manual_seed(5)
+    x = (torch.randn((64, 32, 32, 32), generator=gen, device=dev) * 0.05 + 3.0)
+    x = x.contiguous(memory_format=torch.channels_last)
+    v = torch.ones(32, device=dev)
+    _, stats = batchnorm._launch_fwd(x, v, v, v.clone(), v.clone(), 0.9, 1e-5, True, True,
+                                             None)
+    var = x.double().var(dim=(0, 2, 3), unbiased=False)
+    _close(stats[1].double(), torch.rsqrt(var + 1e-5), 2e-6)
+
+
+def test_batch_norm_relu_takes_strided_and_sliced_cotangents(dev):
+    x, dy, w, b, rm, rv = _bn_inputs(dev, 16, 64, 16, True, seed=3)
+    _, _, _, (want, _, _) = _bn_kernel_run(x, dy, w, b, rm, rv)
+    wide = torch.cat([dy, dy[:, :8]], dim=1)[:, :64]  # a slice of a concat, as the decoder hands back
+    for cot in (wide, dy.contiguous(), dy.float()):
+        xk = x.detach().clone().requires_grad_()
+        y = batch_norm_relu(xk, w, b, rm.clone(), rv.clone())
+        (dx,) = torch.autograd.grad(y, xk, cot)
+        assert torch.equal(dx, want)
+
+
+def test_batch_norm_relu_refuses_what_it_cannot_take(dev):
+    v = torch.ones(12, device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        batch_norm_relu(torch.ones(2, 12, 4, 4, device=dev), v, v, v.clone(), v.clone())
+    v = torch.ones(16, device=dev)
+    strided = torch.ones(2, 16, 8, 8, device=dev)[:, :, ::2]
+    with pytest.raises(ValueError, match="channels-last or contiguous"):
+        batch_norm_relu(strided, v, v, v.clone(), v.clone())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        batch_norm_relu(torch.ones(2, 16, 4, 4, device=dev).half(), v, v, v.clone(), v.clone())
+    with pytest.raises(ValueError, match="weight"):
+        batch_norm_relu(torch.ones(2, 16, 4, 4, device=dev), v.bfloat16(), v, v.clone(), v.clone())
+    # 4 bytes off 16-byte alignment: copied before a kernel sees it
+    x = torch.randn(2 * 16 * 16 + 1, device=dev)[1:].view(2, 16, 4, 4)
+    assert x.data_ptr() % 16
+    torch.testing.assert_close(batch_norm_relu(x, v, v, v.clone(), v.clone()),
+                               batch_norm_relu(x.clone(), v, v, v.clone(), v.clone()), rtol=0, atol=0)
+
+
+def test_batch_norm_relu_refuses_a_second_derivative(dev):
+    """The backward's launches are not differentiable: a gradient of the
+    gradient (the cotangent depends on a parameter) raises instead of
+    reading zero."""
+    x, dy, w, b, rm, rv = _bn_inputs(dev, 4, 16, 8, True)
+    xk = x.detach().clone().requires_grad_()
+    scale = torch.ones((), device=dev, requires_grad=True)
+    y = batch_norm_relu(xk, w, b, rm.clone(), rv.clone())
+    (dx,) = torch.autograd.grad(y, xk, dy * scale, create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiate twice"):
+        dx.float().sum().backward()
+
+
+def test_train_mode_model_matches_the_plain_batch_norm_on_the_card(dev, monkeypatch):
+    """An f32 IMM in train mode, forward and backward: K5 in every block
+    (counted) against the plain version in its place, from one state."""
+    from imm_tpu_torch.models import nets
+    from imm_tpu_torch.models.imm import IMMConfig, init_model
+
+    cfg = IMMConfig(n_landmarks=10, image_size=32)
+    gen = torch.Generator(dev).manual_seed(4)
+    src, tgt = (torch.rand(8, 32, 32, 3, generator=gen, device=dev) for _ in range(2))
+    results = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(nets, "batch_norm_relu", _plain_with_dtype)
+        model = init_model(cfg, seed=0, device=dev).train()
+        before = batch_norm_relu.launches, batch_norm_relu.bwd_launches
+        out = model(src, tgt)
+        loss = out.recon.square().mean() + out.coords.square().mean()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        n_blocks = sum(isinstance(m, nets.FlaxBatchNorm) for m in model.modules())
+        launched = (batch_norm_relu.launches - before[0], batch_norm_relu.bwd_launches - before[1])
+        assert launched == ((0, 0) if plain else (n_blocks, n_blocks))
+        results.append((loss.detach(), grads, [t.clone() for t in model.buffers()]))
+    (loss_k, grads_k, bufs_k), (loss_p, grads_p, bufs_p) = results
+    torch.testing.assert_close(loss_k, loss_p, rtol=1e-5, atol=0)
+    for a, b in zip(bufs_k, bufs_p):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    # The two paths' activations differ in float32's last bits, so an element
+    # whose pre-activation lies within rounding of 0 may pass one ReLU and
+    # not the other: one such element moves every gradient upstream of its
+    # block by ~1/sqrt(its block's elements), 2e-3 here (measured on the
+    # H100: median 2.0e-3, worst 2.8e-3; the same on the CPU with the kernel
+    # source emulated, where every block alone agrees to 1e-7). A dropped
+    # term of the backward moves leaves by their whole size. Leaves whose
+    # gradient is under 1e-3 of the median leaf's (the heatmap head's bias:
+    # a constant under the softmax) are left out.
+    norms = sorted(b.norm().item() for b in grads_p)
+    gaps = sorted(((a - b).norm() / b.norm()).item() for a, b in zip(grads_k, grads_p)
+                  if b.norm() > 1e-3 * norms[len(norms) // 2])
+    assert gaps[len(gaps) // 2] <= 1e-2 and gaps[-1] <= 3e-2, gaps
+
+
+def _plain_with_dtype(x, weight, bias, running_mean, running_var, *, momentum, eps, update_stats,
+                      axis_name, relu, dtype):
+    return _batch_norm_relu_plain(x, weight, bias, running_mean, running_var, momentum, eps,
+                                  update_stats, axis_name, relu, dtype)

@@ -201,7 +201,8 @@ def test_warp_kernel_refuses_cpu_tensor():
 def test_every_kernel_is_registered_with_its_source():
     from imm_tpu_torch.ops import _build
 
-    assert set(_build.KERNELS) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd"}
+    assert set(_build.KERNELS) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd",
+                                   "batch_norm_relu_fwd", "batch_norm_relu_bwd"}
     for name, (source, (argtypes, _)) in _build.KERNELS.items():
         text = (_build.CSRC / source).read_text()
         assert f'extern "C" int {name}(' in text, name
