@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's five CUDA kernels and
+Run from the root of a checkout. It builds the port's six CUDA kernels and
 its nvJPEG shim from ``imm_tpu_torch/csrc/``, holds each kernel against its plain PyTorch version on the
-card (K5, train-mode BatchNorm+ReLU, at the blocks' shapes), and drives the
-port's two main paths at full width (K=10, 128 px, bf16, B=128) through
-their entry points:
+card (K5, train-mode BatchNorm+ReLU, at the blocks' shapes; K6, Adam with
+the parameter EMA and the gradient norm, at the model's 76 leaves on a
+training step's own gradients, and two identical steps equal bit for bit),
+and drives the port's two main paths at full width (K=10, 128 px, bf16,
+B=128) through their entry points:
 
 - serving, preset ``swap``: landmark detector and pose swap, and
   ``cli.generate``;
@@ -72,8 +74,9 @@ their entry points:
   2/2/1 a step. Alone: ``... s.temporal_k30_slice()``.
 
 It checks the launch counts (K5's calls on every training path: 8 a
-train-mode trunk pass, 32 a step with the equivariance view and 24 without)
-and the outputs, times the paths and the kernels
+train-mode trunk pass, 32 a step with the equivariance view and 24 without;
+K6's launches, 2 an Adam step, 0 in serving and in the tools that step
+their own optimizer) and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
 dependent steps, and at K=30; the warp's backward also with every block on
 its direct path), and prints one JSON line per phase. The last two lines are
@@ -122,6 +125,12 @@ TOL_GRAD_REL = 2e-5
 # dweight and dbias 2e-5 of their scale (f32 sums of up to 2M values in
 # other orders)
 TOL_BN_SUMS_REL = 2e-5
+# K6 against the per-leaf update on the same gradients and state: parameters,
+# moments and EMA 2e-6 of each leaf's largest entry. Both round each
+# operation alike; they differ in the order in which the squared norm is
+# summed (which the clip divides by) and in powf's last bit in the bias
+# corrections.
+TOL_ADAM_REL = 2e-6
 # (C, H = W) of the 128 px model's blocks, largest first
 BN_BLOCK_SHAPES = ((32, 128), (64, 64), (128, 32), (256, 16))
 SMOKE_STEPS_PER_CALL = 5  # the preset's 40, cut for the smoke
@@ -214,7 +223,8 @@ def short_name(kernel: str) -> str:
 
 KINDS = (  # first match wins
     ("port_kernels", ("bottleneck_fwd_kernel", "bottleneck_bwd_kernel", "warp_fwd_kernel", "warp_bwd_kernel",
-                      "bn_stats", "bn_apply", "bn_finish", "bn_reduce", "bn_dx")),
+                      "bn_stats", "bn_apply", "bn_finish", "bn_reduce", "bn_dx", "adam_norm",
+                      "adam_update")),
     ("convolution", ("xmma", "convolve", "cudnn", "gemm", "wgrad", "dgrad", "fprop", "cutlass", "nhwcAddPadding", "nchwToNhwc", "nhwcToNchw")),
     ("batch_norm", ("batch_norm",)),
     ("reduction", ("reduce_kernel",)),
@@ -306,6 +316,12 @@ def batch_norm_relu_bound(numel, itemsize, backward=False):
     return bound((3 if backward else 2) * itemsize * numel, (11 if backward else 5) * numel)
 
 
+def adam_ema_bound(n_params: int, ema: bool):
+    """Each byte once: p, g, mu, nu (and the EMA) read, all but g written,
+    and g read once more for the norm; ~20 operations a parameter."""
+    return bound((40 if ema else 32) * n_params, 20 * n_params)
+
+
 def device_phase():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
@@ -338,7 +354,7 @@ def build_phase():
         for name, path in libs.items() if path.with_suffix(".log").exists()
     }
     check(set(libs) == {"bottleneck_fwd", "bottleneck_bwd", "warp_fwd", "warp_bwd",
-                        "batch_norm_relu_fwd", "batch_norm_relu_bwd", "jpeg_decode"},
+                        "batch_norm_relu_fwd", "batch_norm_relu_bwd", "adam_ema", "jpeg_decode"},
           f"kernels built: {sorted(libs)}")
     emit("build", seconds=build_s, libraries=[p.name for p in libs.values()], ptxas=ptxas)
 
@@ -611,6 +627,27 @@ def k5_calls(trunk_passes: int) -> dict[str, int]:
     return {"batch_norm_relu_fwd": 8 * trunk_passes, "batch_norm_relu_bwd": 8 * trunk_passes}
 
 
+def k6_launches(optimizer_steps: int) -> dict[str, int]:
+    """K6's launches for ``optimizer_steps`` Adam steps on the card: the
+    norm and the update."""
+    return {"adam_ema": 2 * optimizer_steps}
+
+
+@contextlib.contextmanager
+def plain_optimizer():
+    """Adam's step on the card through the per-leaf update, as
+    ``plain_batch_norm`` takes K5's plain version (the config has no switch
+    for it)."""
+    from imm_tpu_torch.train.state import Optimizer
+
+    kernel = Optimizer.runs_k6
+    Optimizer.runs_k6 = lambda self, device: False
+    try:
+        yield
+    finally:
+        Optimizer.runs_k6 = kernel
+
+
 @contextlib.contextmanager
 def plain_batch_norm():
     """The models' train-mode BatchNorm+ReLU through its plain version, as
@@ -629,6 +666,167 @@ def plain_batch_norm():
         yield
     finally:
         nets.batch_norm_relu = kernel
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return None if tree is None else tree.detach().clone()
+
+
+def k6_checks(dev, exp, smi):
+    """K6 on the card at the model's 76 leaves. ``synthetic_best`` with a
+    parameter EMA and the NaN guard, from the trained state of ``exp``, takes
+    one step twice from one state with one generator seed: the two states
+    must be equal bit for bit, and the first step's update is held to the
+    per-leaf update (``Optimizer.update_per_leaf``) on its own gradients and
+    state. Then K6 at those leaves
+    with the clip below and above the norm, with weight decay, and with a
+    non-finite gradient (nothing written); then timed beside the per-leaf
+    update and ``torch.optim.Adam(foreach=True)`` with a foreach EMA and
+    ``_foreach_norm``. -> the largest error relative to its leaf's largest
+    entry, and the kernels line's timing."""
+    from imm_tpu_torch.experiment import build_experiment
+    from imm_tpu_torch.train.state import Optimizer, flatten_state
+
+    cfg = smoke_config(1)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, param_ema_decay=0.999, skip_nonfinite_updates=True))
+    trained = exp.model.state_dict()
+    captured = {}
+    real = Optimizer.update_in_place
+
+    def spy(self, grads, state, params, ema_params, loss, ema_decay, nan_guard):
+        captured["before"] = tuple(_clone(t) for t in (grads, state, params, ema_params, loss))
+        captured["recipe"] = (self, ema_decay, nan_guard)
+        out = real(self, grads, state, params, ema_params, loss, ema_decay, nan_guard)
+        captured["after"] = tuple(_clone(t) for t in (state, params, ema_params))
+        captured["out"] = tuple(float(t) for t in (out.grad_norm, out.loss, out.nonfinite))
+        return out
+
+    states = []
+    for run in range(2):
+        e = build_experiment(cfg, total_steps=1)
+        e.model.load_state_dict(trained)
+        with torch.no_grad():
+            for key in ("mu", "nu"):
+                for k, v in e.state.opt_state[key].items():
+                    v.copy_(exp.state.opt_state[key][k])
+            e.state.opt_state["count"].copy_(exp.state.opt_state["count"])
+            for k, v in e.state.ema_params.items():
+                v.copy_(trained[k])
+        e.state.loss_ema = exp.state.loss_ema.clone()
+        e.state.host_step, e.state.step = exp.state.host_step, exp.state.step.clone()
+        reset_kernel_counts()
+        Optimizer.update_in_place = spy if run == 0 else real
+        try:
+            _, metrics = e.step_fn(e.state, torch.Generator(dev).manual_seed(6))
+        finally:
+            Optimizer.update_in_place = real
+        torch.cuda.synchronize()
+        launched = kernel_counts()["adam_ema"]
+        check(launched == 2, f"K6 launched {launched} kernels for one step")
+        check(float(metrics["nonfinite_step"]) == 0.0, f"the step was skipped: {metrics}")
+        states.append(_clone(flatten_state(e.state)))
+        del e
+    differ = [k for k, v in states[0].items() if not torch.equal(v, states[1][k])]
+    check(not differ, f"two identical steps differ: {differ[:5]}")
+
+    def compare(case, got, want=None, before=None):
+        """-> the largest gap to ``want`` over its leaf's largest entry; or
+        equal to ``before`` bit for bit."""
+        worst = 0.0
+        for i, (name, g_t) in enumerate(zip(("params", "mu", "nu", "ema"), got)):
+            for k, v in g_t.items():
+                if before is not None:
+                    check(torch.equal(v, before[name][k]), f"K6 {case}: {name} {k} was written")
+                    continue
+                w_t = want[i]
+                gap = (v - w_t[k]).abs().max().item() / max(w_t[k].abs().max().item(), 1e-30)
+                check(gap <= TOL_ADAM_REL, f"K6 {case}: {name} {k} differs by {gap} of its scale")
+                worst = max(worst, gap)
+        return worst
+
+    grads, state, params, ema, loss = captured["before"]
+    optimizer, ema_decay, guard = captured["recipe"]
+    p_w, s_w, e_w, m_w = optimizer.update_per_leaf(grads, state, params, ema, loss, ema_decay,
+                                                   guard)
+    st, p_k, e_k = captured["after"]
+    report = {"step": compare("step", (p_k, st["mu"], st["nu"], e_k),
+                              (p_w, s_w["mu"], s_w["nu"], e_w))}
+    norm = float(m_w.grad_norm)
+    norm_gap = abs(captured["out"][0] - norm) / norm
+    counts = int(st["count"]), int(s_w["count"]), int(state["count"]) + 1
+    check(norm_gap <= TOL_ADAM_REL and len(set(counts)) == 1,
+          f"K6 step: grad_norm {captured['out'][0]} vs {norm}, counts {counts}")
+    channels_last = sum(not g.is_contiguous() for g in grads.values())
+    tc = optimizer.config
+    for case, over, bad in (("clip_below_the_norm", {"grad_clip": 0.5 * norm}, False),
+                            ("clip_above_the_norm", {"grad_clip": 2.0 * norm}, False),
+                            ("weight_decay", {"weight_decay": 1e-4}, False),
+                            ("nonfinite_gradient", {}, True)):
+        opt = Optimizer(dataclasses.replace(tc, **over))
+        g_in = _clone(grads)
+        if bad:
+            g0 = next(iter(g_in.values()))
+            g0[(0,) * g0.dim()] = float("nan")
+        live = tuple(_clone(t) for t in (state, params, ema))
+        opt.update_in_place(g_in, live[0], live[1], live[2], loss, ema_decay, True)
+        pw, sw, ew, _ = opt.update_per_leaf(g_in, state, params, ema, loss, ema_decay, True)
+        torch.cuda.synchronize()
+        got = (live[1], live[0]["mu"], live[0]["nu"], live[2])
+        if bad:
+            compare(case, got, before={"params": params, "mu": state["mu"], "nu": state["nu"],
+                                       "ema": ema})
+            check(int(live[0]["count"]) == int(state["count"]), f"K6 {case}: the count moved")
+        else:
+            report[case] = compare(case, got, (pw, sw["mu"], sw["nu"], ew))
+    worst = max(report.values())
+    emit("kernel_check", kernel="adam_ema", leaves=len(params), channels_last_grads=channels_last,
+         parameters=sum(p.numel() for p in params.values()), relative_err=report,
+         rtol=TOL_ADAM_REL, grad_norm=norm, grad_norm_relative_err=norm_gap,
+         identical_steps_bit_exact=True)
+
+    # timed at the same leaves, in place, with the EMA and without the guard
+    n_params = sum(p.numel() for p in params.values())
+    live = tuple(_clone(t) for t in (state, params, ema))
+    def fn():
+        return optimizer.update_in_place(grads, live[0], live[1], live[2], loss, ema_decay, False)
+    plain_live = tuple(_clone(t) for t in (state, params, ema))
+
+    def plain_fn():  # with the copy back of the parameters and the EMA, as _single_step
+        new_p, _, new_e, _ = optimizer.update_per_leaf(grads, plain_live[0], plain_live[1],
+                                                       plain_live[2], loss, ema_decay, False)
+        for k, p in plain_live[1].items():
+            p.copy_(new_p[k])
+        for k, v in plain_live[2].items():
+            v.copy_(new_e[k])
+
+    lib_params = [p.clone() for p in params.values()]
+    for p, g in zip(lib_params, grads.values()):
+        p.grad = g.contiguous()
+    lib_grads = [p.grad for p in lib_params]
+    lib_ema = [v.clone() for v in ema.values()]
+    lib_opt = torch.optim.Adam(lib_params, lr=tc.learning_rate, betas=(tc.adam_b1, tc.adam_b2),
+                               eps=1e-8, foreach=True)
+
+    def lib_fn():
+        torch.linalg.vector_norm(torch.stack(torch._foreach_norm(lib_grads)))
+        lib_opt.step()
+        torch._foreach_mul_(lib_ema, ema_decay)
+        torch._foreach_add_(lib_ema, lib_params, alpha=1.0 - ema_decay)
+
+    timing = (profiled_device_ms(fn, complete="adam_update"), profiled_device_ms(plain_fn, 10),
+              *adam_ema_bound(n_params, True), profiled_device_ms(lib_fn, 10))
+    emit("kernel_timing", card=smi, kernel="adam_ema", ms=timing[0], plain_ms=timing[1],
+         bound_ms=timing[2], bound_by=timing[3], library_ms=timing[4],
+         times_bound=timing[0] / timing[2], leaves=len(params), parameters=n_params,
+         library="torch.optim.Adam(foreach=True) + _foreach EMA + _foreach_norm",
+         wrapper_device_ms=profiled_device_ms(fn, 20),
+         call_ms=statistics.median(cuda_times(fn, reps=20, inner=10)),
+         plain_call_ms=statistics.median(cuda_times(plain_fn, reps=20, inner=10)),
+         library_call_ms=statistics.median(cuda_times(lib_fn, reps=20, inner=10)))
+    return worst, timing
 
 
 def smoke_config(steps_per_call: int, plain: bool = False):
@@ -681,7 +879,8 @@ def training_slice(dev):
     # for each, K3 for source and target, K5 in 4 trunk passes; the warp's
     # backward is not on this path
     want = {"bottleneck_fwd": 2 * n_steps, "bottleneck_bwd": 2 * n_steps,
-            "warp_fwd": 2 * n_steps, "warp_bwd": 0, **k5_calls(4 * n_steps)}
+            "warp_fwd": 2 * n_steps, "warp_bwd": 0, **k5_calls(4 * n_steps),
+            **k6_launches(n_steps)}
     check(launches == want, f"launches on the training path {launches}, expected {want}")
 
     ev = exp.eval_fn(state)
@@ -692,7 +891,8 @@ def training_slice(dev):
          metrics=metrics, eval=ev, eval_samples=cfg.eval_samples)
 
     # One step from one state with one generator seed: kernel path against
-    # plain path (K5's plain version patched in). First the pair alone (K3
+    # plain path (K5's plain version and the per-leaf update patched in).
+    # First the pair alone (K3
     # against bilinear_sample in place).
     faces = SyntheticBlobFaces(image_size=cfg.model.image_size)
     frames = faces.sample(torch.Generator(dev).manual_seed(3), BATCH)["image"]
@@ -710,10 +910,11 @@ def training_slice(dev):
     reset_kernel_counts()
     _, m_k = exp_k.step_fn(exp_k.state, torch.Generator(dev).manual_seed(5))
     kernel_launches = kernel_counts()
-    with plain_batch_norm():
+    with plain_batch_norm(), plain_optimizer():
         _, m_p = exp_p.step_fn(exp_p.state, torch.Generator(dev).manual_seed(5))
     torch.cuda.synchronize()
-    want = {"bottleneck_fwd": 2, "bottleneck_bwd": 2, "warp_fwd": 2, "warp_bwd": 0, **k5_calls(4)}
+    want = {"bottleneck_fwd": 2, "bottleneck_bwd": 2, "warp_fwd": 2, "warp_bwd": 0, **k5_calls(4),
+            **k6_launches(1)}
     check(kernel_launches == want, f"the kernel path's step launched {kernel_launches}, expected {want}")
     check(kernel_counts() == kernel_launches, "the plain path launched a kernel")
     m_k = {k: v.item() for k, v in m_k.items()}
@@ -831,7 +1032,8 @@ def checkpoint_slice(dev):
     torch.cuda.synchronize()
     launches = kernel_counts()
     check(state2.host_step == CKPT_STEPS + 1, f"resumed run stopped at {state2.host_step}")
-    want = {"bottleneck_fwd": 2, "bottleneck_bwd": 2, "warp_fwd": 2, "warp_bwd": 0, **k5_calls(4)}
+    want = {"bottleneck_fwd": 2, "bottleneck_bwd": 2, "warp_fwd": 2, "warp_bwd": 0, **k5_calls(4),
+            **k6_launches(1)}
     check(launches == want, f"launches after the resume {launches}, expected {want}")
     metrics = exp2.trainer.history[-1]
     check(all(math.isfinite(v) for v in metrics.values()), f"non-finite metric: {metrics}")
@@ -1381,7 +1583,8 @@ def host_data_slice(dev, smi, synthetic_best_p50):
     # per step: K1 and K2 on the target (the preset has no equivariance term,
     # so no second pose pass), K3 for source and target, K5 in 3 trunk passes
     want = {"bottleneck_fwd": n_steps, "bottleneck_bwd": n_steps,
-            "warp_fwd": 2 * n_steps, "warp_bwd": 0, **k5_calls(3 * n_steps)}
+            "warp_fwd": 2 * n_steps, "warp_bwd": 0, **k5_calls(3 * n_steps),
+            **k6_launches(n_steps)}
     check(launches == want, f"launches on the host-fed path {launches}, expected {want}")
     ev = exp.eval_fn(state)
     check(bool(ev) and all(math.isfinite(v) and v > 0 for v in ev.values()), f"eval: {ev}")
@@ -1483,7 +1686,8 @@ def host_data_slice(dev, smi, synthetic_best_p50):
     check(state_tf.host_step == 3 and all(math.isfinite(v) for v in exp_tf.trainer.history[-1].values()),
           f"tfdata route: {exp_tf.trainer.history[-1:]}")
     check(tf_launches == {"bottleneck_fwd": 3, "bottleneck_bwd": 3, "warp_fwd": 6, "warp_bwd": 0,
-                          **k5_calls(9)}, f"launches on the tfdata route {tf_launches}")
+                          **k5_calls(9), **k6_launches(3)},
+          f"launches on the tfdata route {tf_launches}")
     check(decoded_tf >= 3 * 64, f"the tfdata route decoded {decoded_tf} images with nvJPEG")
     del exp_tf
     emit("host_data_tfdata", preset="celeba_k10", steps=3, seconds_with_worker_start=tfdata_s,
@@ -1550,7 +1754,8 @@ def temporal_slice(dev, smi):
     # for the view (warp_view): temporal pairs are not warped; K5 in 4 trunk
     # passes
     want = {"bottleneck_fwd": 2 * n_steps, "bottleneck_bwd": 2 * n_steps,
-            "warp_fwd": n_steps, "warp_bwd": 0, **k5_calls(4 * n_steps)}
+            "warp_fwd": n_steps, "warp_bwd": 0, **k5_calls(4 * n_steps),
+            **k6_launches(n_steps)}
     check(launches == want, f"launches on the temporal path {launches}, expected {want}")
     ev = exp.eval_fn(state)
     check(bool(ev) and all(math.isfinite(v) and v > 0 for v in ev.values()), f"eval: {ev}")
@@ -1674,7 +1879,8 @@ def data_parallel_slice(dev, smi):
 
     # the window: every rank launched K1/K2/K3/K5 each step, and ended equal
     want = {"bottleneck_fwd": 2 * DP_STEPS, "bottleneck_bwd": 2 * DP_STEPS,
-            "warp_fwd": 2 * DP_STEPS, "warp_bwd": 0, **k5_calls(4 * DP_STEPS)}
+            "warp_fwd": 2 * DP_STEPS, "warp_bwd": 0, **k5_calls(4 * DP_STEPS),
+            **k6_launches(DP_STEPS)}
     for w in windows:
         check(w["launches"] == want, f"rank {w['rank']} launched {w['launches']}, expected {want}")
         check(w["host_step"] == DP_WARMUP_STEPS + DP_STEPS and w["same_on_every_rank"],
@@ -1946,7 +2152,7 @@ def bench_slice():
         counts = kernel_counts()
         steps = workloads * (1 + bench.TRAIN_WARMUP + BENCH_CALLS) * BENCH_SCAN
         check(counts == {"bottleneck_fwd": steps, "bottleneck_bwd": steps, "warp_fwd": 2 * steps,
-                         "warp_bwd": 0, **k5_calls(3 * steps)},
+                         "warp_bwd": 0, **k5_calls(3 * steps), **k6_launches(steps)},
               f"bench {args}: launches {counts} for {steps} steps")
         records = [rec] + ([rec["fullres_loss"]] if workloads == 2 else [])
         check(("fullres_loss" in rec) == (workloads == 2), f"bench {args}: fullres_loss")
@@ -2024,7 +2230,7 @@ def tools_slice():
     eval_calls = 2 * -(-cfg.eval_samples // 256)  # two splits in chunks of 256
     n = TOOLS_SWEEP_STEPS
     want = {"bottleneck_fwd": 2 * n + eval_calls, "bottleneck_bwd": 2 * n, "warp_fwd": 2 * n,
-            "warp_bwd": 0, **k5_calls(4 * n)}
+            "warp_bwd": 0, **k5_calls(4 * n), **k6_launches(n)}
     check(sweep_launches == want, f"sweep launches {sweep_launches}, expected {want}")
 
     proc = subprocess.run([sys.executable, "scripts/summarize_sweep.py", "--inp", str(record)],
@@ -2062,7 +2268,8 @@ def tools_slice():
         "--warp", "--corruption", "noise", "--steps", str(TOOLS_TRUNK_STEPS),
         "--batch", str(TOOLS_TRUNK_BATCH), "--out", str(npz)])
     check(trunk_launches == {"bottleneck_fwd": 0, "bottleneck_bwd": 0,
-                             "warp_fwd": trunk["steps"], "warp_bwd": 0, **k5_calls(0)},
+                             "warp_fwd": trunk["steps"], "warp_bwd": 0, **k5_calls(0),
+                             **k6_launches(0)},
           f"train_features launches {trunk_launches}")
     # the tool loads its npz into the perceptual loss itself (trained_loss)
     check(all(math.isfinite(trunk[k]) for k in ("loss_first", "loss_last", "trained_loss"))
@@ -2075,7 +2282,7 @@ def tools_slice():
           and all(math.isfinite(r["test_pct"]) and r["test_pct"] > 0 for r in oracle),
           f"oracle records {oracle}")
     check(oracle_launches == {"bottleneck_fwd": 0, "bottleneck_bwd": 0, "warp_fwd": 0,
-                              "warp_bwd": 0, **k5_calls(TOOLS_ORACLE_STEPS)},
+                              "warp_bwd": 0, **k5_calls(TOOLS_ORACLE_STEPS), **k6_launches(0)},
           f"the oracle launched {oracle_launches}")
     (root / "tools.log").write_text(printed.getvalue())
 
@@ -2180,7 +2387,7 @@ def resume_slice():
     launches = kernel_counts()
     steps = 7 * n  # 2N + 2N + N + N + N
     want = {"bottleneck_fwd": 2 * steps, "bottleneck_bwd": 2 * steps, "warp_fwd": 2 * steps,
-            "warp_bwd": 0, **k5_calls(4 * steps)}
+            "warp_bwd": 0, **k5_calls(4 * steps), **k6_launches(steps)}
     check(launches == want, f"resume launches {launches}, expected {want}")
 
     raw = (root / "pieces" / "checkpoints" / str(2 * n) / CHECKPOINT_FILE).read_bytes()
@@ -2255,7 +2462,7 @@ def final_window(phase: str, name: str, variant, cfg, root: Path, warps_per_step
           and all(math.isfinite(v) and v > 0 for v in rec["final"].values()), f"{phase} record {rec}")
     eval_calls = 2 * 2 * -(-cfg.eval_samples // 256)  # raw and EMA, two splits in chunks of 256
     want = {"bottleneck_fwd": 2 * n + eval_calls, "bottleneck_bwd": 2 * n,
-            "warp_fwd": warps_per_step * n, "warp_bwd": 0, **k5_calls(4 * n)}
+            "warp_fwd": warps_per_step * n, "warp_bwd": 0, **k5_calls(4 * n), **k6_launches(n)}
     check(launches == want, f"{phase} launches {launches}, expected {want}")
 
     exp = build_experiment(cfg, restore=True)
@@ -2327,6 +2534,8 @@ KERNELS = (  # name, source, the TPU kernel it replaces
      "none: XLA fused flax's nn.BatchNorm (imm_tpu/models/nets.py:83) and the ReLU"),
     ("batch_norm_relu_bwd", "imm_tpu_torch/csrc/batch_norm_relu.cu",
      "none: XLA fused the gradient of flax's nn.BatchNorm and the ReLU"),
+    ("adam_ema", "imm_tpu_torch/csrc/adam_ema.cu",
+     "none: XLA fused optax's Adam, the parameter EMA and the global norm"),
 )
 
 
@@ -2345,6 +2554,8 @@ def main() -> int:
     with timed("warp_grad_slice"):
         k4_launches = warp_grad_slice(dev)
     timings, synthetic_best_p50 = timing_phases(dev, smi, serving, exp)
+    with timed("k6_checks"):
+        errs["adam_ema"], timings["adam_ema"] = k6_checks(dev, exp, smi)
     # The phases added since come after the timing phases, which so time a
     # process in the state they found it in before those phases existed.
     with timed("image_decode"):

@@ -58,6 +58,7 @@ KERNELS = {
         ((_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
          ctypes.c_int),
     ),
+    "adam_ema": ("adam_ema.cu", ((_P, _I, _P), ctypes.c_int)),
 }
 
 # host shim name -> (source file, libraries it links, {C function: signature})

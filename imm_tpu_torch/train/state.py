@@ -23,6 +23,7 @@ from typing import Any
 import torch
 
 from imm_tpu_torch.models.imm import IMM, IMMConfig, init_model
+from imm_tpu_torch.ops.adam import Recipe, StepScalars, adam_ema
 from imm_tpu_torch.utils.config import TrainConfig
 
 Tensors = dict[str, torch.Tensor]
@@ -55,6 +56,9 @@ class Optimizer:
 
     ``update`` is pure: it returns the parameter updates and a new state and
     changes neither argument, so the caller can gate both on a flag.
+    ``update_per_leaf`` adds the parameter EMA and that gate;
+    ``update_in_place`` is the same step for Adam on the card (K6,
+    ``ops/adam.py``), applied in place.
     """
 
     def __init__(self, config: TrainConfig):
@@ -118,6 +122,70 @@ class Optimizer:
                 u = u + c.weight_decay * params[k]
             updates[k] = step_size * u
         return updates, new_state
+
+    def update_per_leaf(self, grads: Tensors, state: dict[str, Any], params: Tensors,
+                        ema_params: Tensors | None, loss: torch.Tensor, ema_decay: float,
+                        nan_guard: bool):
+        """``update``, ``params + updates``, the parameter EMA (``ema_decay >
+        0``) and, with ``nan_guard``, all of them gated on a finite loss and
+        gradient norm, leaf by leaf and out of place: the step of the CPU and
+        of SGD, and what ``update_in_place`` is held to. -> new parameters,
+        optimizer state and EMA, and the step's ``StepScalars`` (its
+        ``nonfinite`` None without the guard)."""
+        grad_sq = torch.stack([torch.sum(g * g) for g in grads.values()]).sum()
+        updates, new_opt_state = self.update(grads, state, params)
+        new_params = {k: p + updates[k] for k, p in params.items()}
+        new_ema_params = ema_params
+        if ema_decay > 0:
+            new_ema_params = {
+                k: e * ema_decay + new_params[k] * (1.0 - ema_decay)
+                for k, e in ema_params.items()
+            }
+        nonfinite = None
+        if nan_guard:
+            # A truly skipped step: gate params AND optimizer state on `ok` —
+            # merely zeroing grads would still move params via decayed Adam
+            # momentum and poison mu/nu with non-finite values.
+            ok = torch.isfinite(loss) & torch.isfinite(grad_sq)
+
+            def gate(new, old):
+                if isinstance(new, dict):
+                    return {k: gate(v, old[k]) for k, v in new.items()}
+                return torch.where(ok, new, old)
+
+            new_params = gate(new_params, params)
+            new_opt_state = gate(new_opt_state, state)
+            if ema_decay > 0:
+                new_ema_params = gate(new_ema_params, ema_params)
+            zero = torch.zeros_like(loss)
+            loss = torch.where(ok, loss, zero)
+            grad_sq = torch.where(ok, grad_sq, zero)
+            nonfinite = 1.0 - ok.to(torch.float32)
+        scalars = StepScalars(grad_norm=grad_sq**0.5, loss=loss, nonfinite=nonfinite)
+        return new_params, new_opt_state, new_ema_params, scalars
+
+    def runs_k6(self, device: torch.device) -> bool:
+        """Whether a step on ``device`` takes ``update_in_place``: Adam on the
+        card. The CPU and SGD take ``update_per_leaf``."""
+        return self.adam and device.type == "cuda"
+
+    def update_in_place(self, grads: Tensors, state: dict[str, Any], params: Tensors,
+                        ema_params: Tensors | None, loss: torch.Tensor, ema_decay: float,
+                        nan_guard: bool) -> StepScalars:
+        """``update_per_leaf`` written into ``params``, ``state`` and
+        ``ema_params`` in place by K6's two launches. -> the step's
+        ``StepScalars`` on the device."""
+        c = self.config
+        recipe = Recipe(c.learning_rate, tuple(self.boundaries), c.adam_b1, c.adam_b2,
+                        weight_decay=c.weight_decay, grad_clip=c.grad_clip, ema_decay=ema_decay,
+                        nan_guard=nan_guard)
+        names = list(params)
+        return adam_ema(
+            [params[k] for k in names], [grads[k] for k in names],
+            [state["mu"][k] for k in names], [state["nu"][k] for k in names],
+            [ema_params[k] for k in names] if ema_decay > 0 else None,
+            state["count"], loss, recipe,
+        )
 
 
 def make_optimizer(config: TrainConfig) -> Optimizer:

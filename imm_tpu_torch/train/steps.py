@@ -196,47 +196,31 @@ def _single_step(
             grads = dict(zip(grads, avg))
             loss = avg[len(grads)]
             metrics.update(zip(terms, avg[len(grads) + 1:]))
-        grad_sq = torch.stack([torch.sum(g * g) for g in grads.values()]).sum()
-        updates, new_opt_state = optimizer.update(grads, state.opt_state, params)
-        new_params = {k: p + updates[k] for k, p in params.items()}
-        new_ema_params = state.ema_params
-        if ema_decay > 0:
-            new_ema_params = {
-                k: e * ema_decay + new_params[k] * (1.0 - ema_decay)
-                for k, e in state.ema_params.items()
-            }
+        if optimizer.runs_k6(loss.device):
+            # K6 (ops/adam.py): the same update in place, parameters, moments,
+            # count and EMA gated on the guard's flag on the device
+            out = optimizer.update_in_place(grads, state.opt_state, params, state.ema_params,
+                                            loss, ema_decay, nan_guard)
+        else:
+            new_params, state.opt_state, state.ema_params, out = optimizer.update_per_leaf(
+                grads, state.opt_state, params, state.ema_params, loss, ema_decay, nan_guard)
+            for k, p in params.items():
+                p.copy_(new_params[k])
         if nan_guard:
-            # A truly skipped step: gate params AND optimizer state on `ok` —
-            # merely zeroing grads would still move params via decayed Adam
-            # momentum and poison mu/nu with non-finite values.
-            ok = torch.isfinite(loss) & torch.isfinite(grad_sq)
-
-            def gate(new, old):
-                if isinstance(new, dict):
-                    return {k: gate(v, old[k]) for k, v in new.items()}
-                return torch.where(ok, new, old)
-
-            new_params = gate(new_params, params)
-            new_opt_state = gate(new_opt_state, state.opt_state)
-            if ema_decay > 0:
-                new_ema_params = gate(new_ema_params, state.ema_params)
+            # the rest of a skipped step: the loss EMA, the BatchNorm
+            # statistics and the metrics
+            ok = out.nonfinite == 0
             new_ema = torch.where(ok, new_ema, state.loss_ema)
             for k, v in stats.items():
                 v.copy_(torch.where(ok, v, old_stats[k]))
             zero = torch.zeros_like(loss)
-            loss = torch.where(ok, loss, zero)
-            grad_sq = torch.where(ok, grad_sq, zero)
             metrics = {k: torch.where(ok, v, zero) for k, v in metrics.items()}
-            metrics["nonfinite_step"] = 1.0 - ok.to(torch.float32)
-        for k, p in params.items():
-            p.copy_(new_params[k])
-        metrics["loss/total"] = loss
-        metrics["grad_norm"] = grad_sq**0.5
+            metrics["nonfinite_step"] = out.nonfinite
+        metrics["loss/total"] = out.loss
+        metrics["grad_norm"] = out.grad_norm
         state.step = state.step + 1
         state.host_step += 1
-        state.opt_state = new_opt_state
         state.loss_ema = new_ema
-        state.ema_params = new_ema_params
     return state, metrics
 
 

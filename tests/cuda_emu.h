@@ -1,8 +1,8 @@
 // Runs a CUDA C++ source's kernels on the CPU, for tests: the blocks of a
 // launch one after another, a block's threads as std::threads that meet at
 // __syncthreads. Enough of the CUDA runtime and of cuda_bf16.h for
-// imm_tpu_torch/csrc/batch_norm_relu.cu, to be widened as another kernel's
-// source needs; `<<<grid, block, ...>>>(args)` is rewritten to
+// imm_tpu_torch/csrc/batch_norm_relu.cu and adam_ema.cu, to be widened as
+// another kernel's source needs; `<<<grid, block, ...>>>(args)` is rewritten to
 // emu_launch(grid, block, ...) by tests/cuda_emu.py.
 // Blocks never run at once, so this shows a kernel's arithmetic, indexing and
 // block-level synchronisation, not races between blocks.
@@ -20,6 +20,9 @@
 #define __forceinline__ inline
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __grid_constant__
+
+using std::isfinite;
 
 struct uint3 { unsigned x, y, z; };
 struct dim3 {

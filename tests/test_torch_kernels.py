@@ -9,6 +9,9 @@ float32 from the same bf16 input: y and dx one bf16 rounding (2^-8 of the
 value; dx 2^-8 of the largest |dx|, where the two formulas cancel
 differently); mean, invstd, the running statistics, dgamma and dbeta 2e-5
 relative to their scale (f32 sums of up to 2M values in other orders).
+Adam with the EMA and the norm (K6), against the per-leaf update on the same
+state and gradients: 2e-6 of each tensor's largest entry (the norm's order
+of summation, ``powf``'s last bit).
 Bottleneck forward and backward, warp forward: 1e-5 (float32):
 kernel and plain version differ only in ``expf`` against ``torch.exp``,
 summation order, fused multiply-adds and the ruler's last bit. Warp backward:
@@ -22,11 +25,13 @@ import dataclasses
 import pytest
 import torch
 
-from imm_tpu_torch.ops import batchnorm
+from imm_tpu_torch.ops import adam, batchnorm
 from imm_tpu_torch.ops.batchnorm import _batch_norm_relu_plain, batch_norm_relu
 from imm_tpu_torch.ops.fused import _bottleneck_reference, landmark_bottleneck
 from imm_tpu_torch.ops.image import bilinear_sample, normalized_grid
 from imm_tpu_torch.ops.warp import warp_bilinear
+from imm_tpu_torch.train.state import Optimizer, piecewise_constant_config
+import test_torch_adam as adam_cases  # tests/ is on the path under pytest
 
 pytestmark = pytest.mark.cuda
 
@@ -686,3 +691,79 @@ def _plain_with_dtype(x, weight, bias, running_mean, running_var, *, momentum, e
                       axis_name, relu, dtype):
     return _batch_norm_relu_plain(x, weight, bias, running_mean, running_var, momentum, eps,
                                   update_stats, axis_name, relu, dtype)
+
+
+# -- Adam, the parameter EMA and the norm (K6) ---------------------------------
+
+
+@pytest.mark.parametrize("case", sorted(adam_cases.CASES))
+def test_adam_ema_matches_the_per_leaf_update(dev, case):
+    """Leaves of the model's odd sizes with gradients channels-last, 4 bytes
+    off a 16-byte boundary and transposed: parameters, moments, EMA, count
+    and metrics after each step against the per-leaf update; a step the
+    guard skips writes nothing."""
+    count, steps, wd, clip, ema_decay, guard, fault = adam_cases.CASES[case]
+    cfg = dataclasses.replace(piecewise_constant_config(1e-3, {1000: 0.3, 2000: 0.1}),
+                              weight_decay=wd, grad_clip=clip)
+    optimizer = Optimizer(cfg)
+    params, grads, opt_state, ema = adam_cases._leaves(seed=len(case), device=dev)
+    opt_state["count"].fill_(count)
+    if fault == "grad":
+        grads["dec"][3, 7, 1, 2] = float("nan")
+    loss = torch.tensor(float("inf") if fault == "loss" else 0.5, device=dev)
+    live = adam_cases._clone((params, opt_state, ema))
+    want = (params, opt_state, ema)
+    before = adam.adam_ema.launches
+    for step in range(steps):
+        prev = adam_cases._clone(live)
+        out = adam_cases._k6_step(adam.adam_ema, optimizer, live[0], grads, live[1], live[2], loss,
+                                  ema_decay, guard)
+        p_w, s_w, e_w, m_w = adam_cases._per_leaf(optimizer, want[0], grads, want[1], want[2],
+                                                  loss, ema_decay, guard)
+        want = (p_w, s_w, e_w)
+        assert int(live[1]["count"]) == count + (step + 1 if fault is None else 0)
+        for got, old, ref in zip((live[0], live[1]["mu"], live[1]["nu"], live[2]),
+                                 (prev[0], prev[1]["mu"], prev[1]["nu"], prev[2]),
+                                 (p_w, s_w["mu"], s_w["nu"], e_w)):
+            for k in got:
+                if fault is not None or (ref is e_w and ema_decay == 0):
+                    assert torch.equal(got[k], old[k]), k
+                else:
+                    adam_cases._close(got[k], ref[k], f"{case} step {step} {k}")
+        assert float(out.nonfinite) == float(m_w["nonfinite_step"])
+        adam_cases._close(out.grad_norm, m_w["grad_norm"], "grad_norm")
+        assert torch.equal(out.loss, m_w["loss/total"])
+    assert adam.adam_ema.launches - before == 2 * steps
+
+
+def test_adam_ema_repeats_bit_for_bit(dev):
+    optimizer = Optimizer(dataclasses.replace(piecewise_constant_config(1e-3, {}), grad_clip=1.0))
+    params, grads, opt_state, ema = adam_cases._leaves(seed=3, device=dev)
+    runs = []
+    for _ in range(2):
+        live = adam_cases._clone((params, opt_state, ema))
+        out = adam_cases._k6_step(adam.adam_ema, optimizer, live[0], grads, live[1], live[2],
+                                  torch.tensor(1.0, device=dev), 0.999, True)
+        runs.append(adam_cases._flat({"norm": out.grad_norm, "p": live[0], "s": live[1],
+                                      "e": live[2]}))
+    assert all(torch.equal(v, runs[1][k]) for k, v in runs[0].items())
+
+
+def test_training_step_takes_k6_on_the_card(dev):
+    """Adam's step on the card launches K6 twice and nothing of the per-leaf
+    update; the state's tensors stay where they are."""
+    from imm_tpu_torch.configs import get_preset
+    from imm_tpu_torch.experiment import build_experiment
+    from imm_tpu_torch.train.state import flatten_state
+
+    cfg = get_preset("tiny_cpu")
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, param_ema_decay=0.999))
+    exp = build_experiment(cfg, device=dev, total_steps=1, restore=False)
+    where = {k: v.data_ptr() for k, v in flatten_state(exp.state).items()}
+    before = adam.adam_ema.launches
+    state, metrics = exp.step_fn(exp.state, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    assert adam.adam_ema.launches - before == 2 and int(state.opt_state["count"]) == 1
+    live = flatten_state(state)
+    assert all(live[k].data_ptr() == p for k, p in where.items() if k not in ("step", "loss_ema"))
+    assert torch.isfinite(metrics["grad_norm"]) and metrics["grad_norm"] > 0
