@@ -76,7 +76,9 @@ B=128) through their entry points:
 It checks the launch counts (K5's calls on every training path: 8 a
 train-mode trunk pass, 32 a step with the equivariance view and 24 without;
 K6's launches, 2 an Adam step, 0 in serving and in the tools that step
-their own optimizer) and the outputs, times the paths and the kernels
+their own optimizer; ``SameConv2d``'s pads taken inside the convolution
+and copied, 20 and 6 a swap call, 26 and 9 a training step, each conv
+shape held to the explicit pad) and the outputs, times the paths and the kernels
 (the two bottleneck kernels also at B=1, one block: the bare chain of
 dependent steps, and at K=30; the warp's backward also with every block on
 its direct path), and prints one JSON line per phase. The last two lines are
@@ -133,6 +135,14 @@ TOL_BN_SUMS_REL = 2e-5
 TOL_ADAM_REL = 2e-6
 # (C, H = W) of the 128 px model's blocks, largest first
 BN_BLOCK_SHAPES = ((32, 128), (64, 64), (128, 32), (256, 16))
+# SameConv2d's pads taken inside the convolution and copied (inline, copied)
+# in one swap call and one training step of the 128 px model: every
+# stride-2 conv meets an even input, so its (0, 1) pad is copied; a step
+# runs the pose trunk and its head a second time, on the equivariance view
+SWAP_PADS, TRAIN_PADS = (20, 6), (26, 9)
+# SameConv2d against the explicit pad and a valid conv in bf16: the card
+# tests' bf16 tolerance, one rounding (2^-8) of the largest value
+TOL_BF16_REL = 2.0**-8
 SMOKE_STEPS_PER_CALL = 5  # the preset's 40, cut for the smoke
 SMOKE_CALLS = 3
 CKPT_STEPS, CKPT_EVERY = 16, 8  # one step a call: a save after the 8th and the 16th
@@ -234,11 +244,15 @@ KINDS = (  # first match wins
 )
 
 
+def kind_of(kernel: str) -> str:
+    return next((k for k, words in KINDS if any(w in kernel for w in words)), "other")
+
+
 def by_kind(rows) -> dict[str, float]:
     """Device ms of profiler ``rows`` summed by kind of kernel."""
     out: dict[str, float] = {}
     for name, _, us in rows:
-        kind = next((k for k, words in KINDS if any(w in name for w in words)), "other")
+        kind = kind_of(name)
         out[kind] = out.get(kind, 0.0) + us / 1e3
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
@@ -542,6 +556,146 @@ def kernel_checks(dev) -> dict[str, float]:
     return errs
 
 
+def same_conv_calls(model, fn):
+    """One ``fn()``: -> its ``SameConv2d`` calls in ``model`` as (module,
+    input shape, channels-last), and the pads counted inline and copied."""
+    from imm_tpu_torch.models.nets import SameConv2d
+
+    calls = []
+
+    def record(m, args):
+        x = args[0]
+        calls.append((m, tuple(x.shape), x.is_contiguous(memory_format=torch.channels_last)))
+
+    hooks = [m.register_forward_pre_hook(record) for m in model.modules() if isinstance(m, SameConv2d)]
+    reset_kernel_counts()
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+    pads = (SameConv2d.inline_pads, SameConv2d.pad_copies)
+    check(sum(pads) == len(calls), f"{len(calls)} SameConv2d calls, counted {pads}")
+    return calls, pads
+
+
+def explicit_pad_conv(conv, x):
+    """``SameConv2d``'s function as it ran before its symmetric pads went
+    inside the convolution: ``F.pad`` of the SAME pad, then a valid conv."""
+    import torch.nn.functional as F
+
+    from imm_tpu_torch.models.nets import same_padding
+
+    (kh, kw), (sh, sw), dt = conv.kernel_size, conv.stride, conv.compute_dtype
+    ph, pw = same_padding(x.shape[2], kh, sh), same_padding(x.shape[3], kw, sw)
+    bias = None if conv.bias is None else conv.bias.to(dt)
+    return F.conv2d(F.pad(x.to(dt), (*pw, *ph)), conv.weight.to(dt), bias, conv.stride)
+
+
+def distinct_convs(*call_lists):
+    """{(cin, cout, kernel, stride, input shape, channels-last): [module,
+    calls in each list]} over the lists of ``same_conv_calls``."""
+    out = {}
+    for i, calls in enumerate(call_lists):
+        for m, shape, channels_last in calls:
+            key = (m.in_channels, m.out_channels, m.kernel_size[0], m.stride[0], shape, channels_last)
+            out.setdefault(key, [m] + [0] * len(call_lists))[1 + i] += 1
+    return out
+
+
+def same_conv_checks(dev, serve_calls, train_calls):
+    """Each of the model's convolutions at its own input shape (B=128, bf16,
+    channels-last), through ``SameConv2d`` against ``explicit_pad_conv``:
+    the output and the gradients in the input, the weight and the bias
+    within one bf16 rounding of the largest value; the route taken read
+    from the counts."""
+    from imm_tpu_torch.models.nets import SameConv2d, same_padding
+
+    gen = torch.Generator(dev).manual_seed(12)
+    rows = []
+    for (cin, cout, k, stride, shape, channels_last), (m, *_) in distinct_convs(serve_calls, train_calls).items():
+        fmt = torch.channels_last if channels_last else torch.contiguous_format
+        x = torch.randn(shape, generator=gen, device=dev).to(m.compute_dtype).contiguous(memory_format=fmt)
+        x.requires_grad_()
+        reset_kernel_counts()
+        got = m(x)
+        pads = (SameConv2d.inline_pads, SameConv2d.pad_copies)
+        want = explicit_pad_conv(m, x)
+        g = torch.randn(want.shape, generator=gen, device=dev).to(want.dtype).contiguous(memory_format=fmt)
+        wrt = [x, m.weight] + ([] if m.bias is None else [m.bias])
+        g_got = torch.autograd.grad(got, wrt, g)
+        g_want = torch.autograd.grad(want, wrt, g)
+        torch.cuda.synchronize()
+        ph = same_padding(shape[2], k, stride)
+        inline = ph[0] == ph[1]
+        errs = {}
+        for what, a, b in zip(("y", "dx", "dweight", "dbias"), (got, *g_got), (want, *g_want)):
+            tol = TOL_BF16_REL * max(1.0, b.float().abs().max().item())
+            errs[what] = (a.float() - b.float()).abs().max().item()
+            check(errs[what] <= tol, f"SameConv2d {shape} k{k} s{stride}: {what} differs from the "
+                                     f"explicit pad by {errs[what]} (atol {tol})")
+        check(pads == ((1, 0) if inline else (0, 1)), f"SameConv2d {shape} k{k} s{stride} counted {pads}")
+        check(got.dtype == want.dtype and got.stride() == want.stride(),
+              f"SameConv2d {shape}: {got.dtype} {got.stride()} against {want.dtype} {want.stride()}")
+        rows.append(dict(shape=list(shape), cin=cin, cout=cout, kernel=k, stride=stride,
+                         channels_last=channels_last, inline=inline, max_abs_err=errs))
+    emit("same_conv_check", dtype="bfloat16", tol_rel=TOL_BF16_REL, convs=len(rows), by_shape=rows)
+
+
+def same_conv_timing(dev, smi, serve_calls, train_calls):
+    """Device ms of the model's convolutions as a swap call (forward) and a
+    training step (forward and backward) run them, through ``SameConv2d``
+    and through ``explicit_pad_conv`` (the pads copied, as before they went
+    inline), each split into what ``imm.conv_prep`` launches (casts, pads
+    and the pads' backward: the elementwise kernels) and the convolution's
+    own kernels, with the convolution kernels by name (cuDNN may pick
+    other engines for an input padded inside)."""
+    gen = torch.Generator(dev).manual_seed(13)
+
+    def split(fn, calls=20):
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # a window the tracer handed back empty is taken again
+            rows, _ = profiled_kernels(fn, calls)
+            # a span's row repeats the device time of the kernels under it
+            rows = [r for r in rows if not r[0].startswith("imm.")]
+            if rows:
+                break
+        check(bool(rows), "the profiler saw no GPU kernel")
+        kinds = by_kind(rows)
+        conv = kinds.get("convolution", 0.0) / calls
+        engines = [[short_name(n), c / calls, us / 1e3 / calls] for n, c, us in rows
+                   if kind_of(n) == "convolution"]
+        return {"prep_ms": sum(kinds.values()) / calls - conv, "conv_ms": conv, "conv_kernels": engines}
+
+    totals = {f"{phase}_{route}": {"prep_ms": 0.0, "conv_ms": 0.0}
+              for phase in ("serve_call", "train_step") for route in ("inline", "explicit")}
+    rows = []
+    for (cin, cout, k, stride, shape, channels_last), (m, n_serve, n_train) in distinct_convs(
+            serve_calls, train_calls).items():
+        fmt = torch.channels_last if channels_last else torch.contiguous_format
+        x = torch.randn(shape, generator=gen, device=dev).to(m.compute_dtype).contiguous(memory_format=fmt)
+        xg = x.clone().requires_grad_()
+        g = torch.randn(explicit_pad_conv(m, x).shape, generator=gen, device=dev).to(x.dtype)
+        g = g.contiguous(memory_format=fmt)  # the cotangent in the output's layout, as in a step
+        row = dict(shape=list(shape), cin=cin, cout=cout, kernel=k, stride=stride,
+                   serve_calls=n_serve, train_calls=n_train)
+        with torch.no_grad():
+            fwd = {"inline": split(lambda: m(x)), "explicit": split(lambda: explicit_pad_conv(m, x))}
+        both = {"inline": split(lambda: torch.autograd.grad(m(xg), (xg, m.weight), g)),
+                "explicit": split(lambda: torch.autograd.grad(explicit_pad_conv(m, xg), (xg, m.weight), g))}
+        for route in ("inline", "explicit"):
+            row[f"forward_{route}"], row[f"forward_backward_{route}"] = fwd[route], both[route]
+            for phase, n, r in (("serve_call", n_serve, fwd[route]), ("train_step", n_train, both[route])):
+                for what in ("prep_ms", "conv_ms"):
+                    totals[f"{phase}_{route}"][what] += n * r[what]
+        rows.append(row)
+    emit("kernel_timing", card=smi, kernel="same_conv", dtype="bfloat16", batch=BATCH,
+         note="inline: SameConv2d as it runs; explicit: F.pad then a valid conv (the copied pads)",
+         **totals, by_shape=rows)
+
+
 def serving_slice(dev):
     """The swap preset's serving forwards at full width; -> what the timing
     phases reuse and K1's launches on this path."""
@@ -582,6 +736,9 @@ def serving_slice(dev):
     # one launch per encode_pose: landmark_fn once, swap_fn once
     check(launches == 2, f"bottleneck_fwd launched {launches} times on the serving path, expected 2")
     check(sum(counts.values()) == launches, f"eval mode launched another kernel: {counts}")
+    conv_calls, pads = same_conv_calls(model, lambda: swap(app, pose))
+    emit("same_conv_pads", path="swap", inline_pads=pads[0], pad_copies=pads[1], expected=SWAP_PADS)
+    check(pads == SWAP_PADS, f"one swap call took {pads} pads (inline, copied), expected {SWAP_PADS}")
 
     plain = IMM(dataclasses.replace(config, bottleneck_impl="xla")).to(dev)
     plain.load_state_dict(model.state_dict())
@@ -617,7 +774,7 @@ def serving_slice(dev):
           f"cli output {cli_out.shape}")
     emit("cli_generate", shape=list(cli_out.shape))
     return dict(landmarks=landmarks, swap=swap, app=app, pose=pose, launches=launches, model=model,
-                swaps=swaps, coords=coords, swap_tol=swap_tol)
+                swaps=swaps, coords=coords, swap_tol=swap_tol, conv_calls=conv_calls)
 
 
 def k5_calls(trunk_passes: int) -> dict[str, int]:
@@ -845,8 +1002,8 @@ def smoke_config(steps_per_call: int, plain: bool = False):
 
 def training_slice(dev):
     """The ``synthetic_best`` training step at full width through
-    ``build_experiment(config).run()``; -> the experiment and the kernels'
-    launches on this path."""
+    ``build_experiment(config).run()``; -> the experiment, the kernels'
+    launches on this path and one step's ``SameConv2d`` calls."""
     from imm_tpu_torch.data.pairs import PairSynthesizer
     from imm_tpu_torch.data.synthetic import SyntheticBlobFaces
     from imm_tpu_torch.experiment import build_experiment
@@ -907,9 +1064,13 @@ def training_slice(dev):
         e.state.loss_ema = state.loss_ema.clone()
         e.state.opt_state = copy.deepcopy(state.opt_state)
         e.state.host_step, e.state.step = state.host_step, state.step.clone()
-    reset_kernel_counts()
-    _, m_k = exp_k.step_fn(exp_k.state, torch.Generator(dev).manual_seed(5))
+    stepped = []
+    conv_calls, pads = same_conv_calls(
+        exp_k.model, lambda: stepped.append(exp_k.step_fn(exp_k.state, torch.Generator(dev).manual_seed(5))))
+    _, m_k = stepped[0]
     kernel_launches = kernel_counts()
+    emit("same_conv_pads", path="train_step", inline_pads=pads[0], pad_copies=pads[1], expected=TRAIN_PADS)
+    check(pads == TRAIN_PADS, f"one training step took {pads} pads (inline, copied), expected {TRAIN_PADS}")
     with plain_batch_norm(), plain_optimizer():
         _, m_p = exp_p.step_fn(exp_p.state, torch.Generator(dev).manual_seed(5))
     torch.cuda.synchronize()
@@ -938,7 +1099,7 @@ def training_slice(dev):
         cwd=ROOT, check=True, timeout=900,  # the weights path resolves against the root
     )
     emit("cli_train", steps=SMOKE_STEPS_PER_CALL)
-    return exp, launches
+    return exp, launches, conv_calls
 
 
 def png_size(path: Path) -> tuple[int, int]:
@@ -1217,7 +1378,7 @@ def k5_timed_calls(gen, dev, c, hw):
     }
 
 
-def timing_phases(dev, smi, serving, exp):
+def timing_phases(dev, smi, serving, exp, train_conv_calls):
     """-> {kernel: (ms, plain_ms, bound_ms, bound_by, library_ms)}."""
     import torch.nn.functional as F
 
@@ -1379,6 +1540,7 @@ def timing_phases(dev, smi, serving, exp):
         # per call with the host's issue time: 20 runs of 50 back-to-back calls
         whole.update({"bottleneck_fwd": (k1, k1_plain, 50), "bottleneck_bwd": (k2, k2_plain, 50),
                       "warp_fwd": (k3, k3_plain, 10), "warp_bwd": (k4, k4_plain, 10)})
+        same_conv_timing(dev, smi, serving["conv_calls"], train_conv_calls)
         for name, (ms, plain_ms, bound_ms, bound_by, library_ms) in timings.items():
             fn, plain_fn, inner = whole[name]
             emit("kernel_timing", card=smi, kernel=name, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -2550,10 +2712,12 @@ def main() -> int:
     with timed("serving_slice"):
         serving = serving_slice(dev)
     with timed("training_slice"):
-        exp, train_launches = training_slice(dev)
+        exp, train_launches, train_conv_calls = training_slice(dev)
+    with timed("same_conv_checks"):
+        same_conv_checks(dev, serving["conv_calls"], train_conv_calls)
     with timed("warp_grad_slice"):
         k4_launches = warp_grad_slice(dev)
-    timings, synthetic_best_p50 = timing_phases(dev, smi, serving, exp)
+    timings, synthetic_best_p50 = timing_phases(dev, smi, serving, exp, train_conv_calls)
     with timed("k6_checks"):
         errs["adam_ema"], timings["adam_ema"] = k6_checks(dev, exp, smi)
     # The phases added since come after the timing phases, which so time a

@@ -12,7 +12,8 @@ bf16, as flax's ``dtype=bf16, param_dtype=f32`` does.
 
 Numerics kept from flax:
 - ``padding="SAME"`` is TF-style: at stride 2 on an even input the pad is
-  (0, 1), not (1, 1), so convs pad explicitly (``same_padding``);
+  (0, 1), not (1, 1), so those convs pad explicitly (``same_padding``);
+  symmetric pads go inside the convolution;
 - BatchNorm keeps flax's ``momentum=0.9`` (torch's 0.1) and updates the
   running variance with the *biased* batch variance, eps 1e-5;
 - GroupNorm uses flax's eps 1e-6 and ``min(8, features)`` groups;
@@ -55,7 +56,18 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
 
 
 class SameConv2d(nn.Conv2d):
-    """``nn.Conv2d`` with flax's ``padding="SAME"`` and compute dtype."""
+    """``nn.Conv2d`` with flax's ``padding="SAME"`` and compute dtype.
+
+    Where the SAME pad is symmetric on both spatial axes (every stride-1
+    conv with an odd kernel, and stride 2 on an odd input), the convolution
+    pads implicitly (``F.conv2d(padding=...)``: no padded copy of the
+    activation); elsewhere (stride 2 on an even input: (0, 1)) it pads with
+    ``F.pad`` and runs a valid convolution. Zero padding either way: the
+    same function. ``inline_pads`` and ``pad_copies`` count the calls of
+    each kind since ``ops.reset_kernel_counts``."""
+
+    inline_pads = 0
+    pad_copies = 0
 
     def __init__(self, cin, cout, kernel, stride=1, bias=True, dtype=torch.float32):
         super().__init__(cin, cout, kernel, stride=stride, padding=0, bias=bias)
@@ -71,10 +83,17 @@ class SameConv2d(nn.Conv2d):
         sh, sw = self.stride
         ph, pw = same_padding(x.shape[2], kh, sh), same_padding(x.shape[3], kw, sw)
         with span("imm.conv_prep"):
-            x = F.pad(x.to(self.compute_dtype), (*pw, *ph))
+            x = x.to(self.compute_dtype)
+            if ph[0] == ph[1] and pw[0] == pw[1]:
+                padding = (ph[0], pw[0])
+                SameConv2d.inline_pads += 1
+            else:
+                padding = 0
+                x = F.pad(x, (*pw, *ph))
+                SameConv2d.pad_copies += 1
             bias = None if self.bias is None else self.bias.to(self.compute_dtype)
             weight = self.weight.to(self.compute_dtype)
-        return F.conv2d(x, weight, bias, self.stride)
+        return F.conv2d(x, weight, bias, self.stride, padding)
 
 
 class FlaxBatchNorm(nn.Module):

@@ -31,6 +31,11 @@ def kernel_counts() -> dict[str, int]:
 
 
 def reset_kernel_counts() -> None:
+    """Zero the counts of ``kernel_counts``, and ``SameConv2d``'s counts of
+    inline and copied SAME pads."""
+    from imm_tpu_torch.models.nets import SameConv2d
+
+    SameConv2d.inline_pads = SameConv2d.pad_copies = 0
     landmark_bottleneck.launches = landmark_bottleneck.bwd_launches = 0
     warp_bilinear.launches = warp_bilinear.bwd_launches = 0
     batch_norm_relu.launches = batch_norm_relu.bwd_launches = 0

@@ -28,8 +28,9 @@ The span names are a contract with the benchmark's readers
   ``imm.decoder`` (with the Gaussian maps and the concat) in
   ``models/imm.py``;
 - ``imm.norm_relu``: a conv block's norm and ReLU (``models/nets.py``);
-  ``imm.conv_prep``: what a convolution does before ``F.conv2d`` (the SAME
-  pad and the casts; ``models/nets.py``, ``models/vgg.py``).
+  ``imm.conv_prep``: what a convolution does before ``F.conv2d`` (the casts,
+  and the SAME pad where it is asymmetric and so is copied;
+  ``models/nets.py``, ``models/vgg.py``).
 """
 
 from __future__ import annotations

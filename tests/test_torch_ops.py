@@ -7,20 +7,29 @@ bit), 1e-5 for the bottleneck against JAX's Pallas kernel in interpret mode
 (as ``tests/test_fused.py`` holds that kernel to its XLA path).
 """
 
+import json
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from imm_tpu.models.nets import _upsample2x as jax_upsample2x
 from imm_tpu.ops import coords as jax_coords
 from imm_tpu.ops import gauss as jax_gauss
 from imm_tpu.ops.fused import landmark_bottleneck as jax_bottleneck
+from imm_tpu_torch.eval.swap import swap_fn
+from imm_tpu_torch.experiment import build_experiment
+from imm_tpu_torch.models.imm import IMMConfig, init_model
 from imm_tpu_torch.models.nets import ConvBlock, SameConv2d, _upsample2x, same_padding
-from imm_tpu_torch.ops import coords, gauss
+from imm_tpu_torch.ops import coords, gauss, reset_kernel_counts
 from imm_tpu_torch.ops.fused import _bottleneck_reference, landmark_bottleneck
 from tests.torch_parity import n, t
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 def _heatmaps(shape, seed=0, scale=3.0):
@@ -154,6 +163,83 @@ def test_same_conv_matches_flax(size, kernel, stride):
         got = conv(t(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     assert got.shape == want.shape
     np.testing.assert_allclose(n(got), n(want), atol=1e-4)
+
+
+def _reorder_bound(x, w, g, pads, stride):
+    """Bound on the change of the input gradient of ``F.conv2d(F.pad(x))``
+    when its sums are taken in another order, in float32 accumulation:
+    2 (n - 1) eps times the sum of the terms' magnitudes, n terms each."""
+    xa = x.detach().double().abs().requires_grad_()
+    F.conv2d(F.pad(xa, pads), w.detach().double().abs(), None, stride).backward(g.double().abs())
+    n_terms = w.shape[0] * w.shape[2] * w.shape[3]
+    return 2 * (n_terms - 1) * torch.finfo(torch.float32).eps * xa.grad
+
+
+@pytest.mark.parametrize("channels_last", [False, True], ids=["nchw", "channels_last"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("size", [8, 9, 15, 16])
+@pytest.mark.parametrize("kernel,stride", [(7, 1), (3, 1), (3, 2), (1, 1)])
+def test_same_conv_matches_explicit_pad(kernel, stride, size, dtype, channels_last):
+    """A symmetric SAME pad goes inside the convolution, an asymmetric one
+    (stride 2 on an even input) is copied; either way the output and the
+    gradients in the input, the weight and the bias are those of ``F.pad``
+    then a valid ``F.conv2d``: equal in float32 (the input gradient within
+    the reordering of its float32 sums), within one bf16 rounding in bf16."""
+    gen = torch.Generator().manual_seed(size * 100 + kernel * 10 + stride)
+    conv = SameConv2d(5, 6, kernel, stride, bias=True, dtype=dtype)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen))
+        conv.bias.copy_(torch.randn(6, generator=gen))
+    x = torch.randn(2, 5, size, size, generator=gen).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    ph, pw = same_padding(size, kernel, stride), same_padding(size, kernel, stride)
+    symmetric = ph[0] == ph[1]
+    assert symmetric == (stride == 1 or size % 2 == 1)
+
+    x_got, x_want = x.clone().requires_grad_(), x.clone().requires_grad_()
+    w_want = conv.weight.detach().clone().requires_grad_()
+    b_want = conv.bias.detach().clone().requires_grad_()
+    reset_kernel_counts()
+    got = conv(x_got)
+    assert (SameConv2d.inline_pads, SameConv2d.pad_copies) == ((1, 0) if symmetric else (0, 1))
+    want = F.conv2d(F.pad(x_want, (*pw, *ph)), w_want.to(dtype), b_want.to(dtype), stride)
+    assert got.dtype == want.dtype == dtype and got.shape == want.shape
+    g = torch.randn(want.shape, generator=gen).to(dtype)
+    got.backward(g)
+    want.backward(g)
+
+    rtol = 0.0 if dtype == torch.float32 else 2.0**-7  # one bf16 rounding
+    for a, b in [(got, want), (conv.weight.grad, w_want.grad), (conv.bias.grad, b_want.grad)]:
+        torch.testing.assert_close(a, b, atol=0, rtol=rtol)
+    bound = _reorder_bound(x, conv.weight, g, (*pw, *ph), stride) + rtol * x_want.grad.double().abs()
+    assert ((x_got.grad.double() - x_want.grad.double()).abs() <= bound).all()
+
+
+def test_same_conv_pad_counts_of_a_swap_call_and_a_training_step():
+    """The K=10 model at 32 px: every stride-2 conv meets an even input, so
+    a swap call takes 20 pads inline (5 a trunk, the heatmap head, 8
+    decoder blocks and to_rgb) and copies 6 (3 a trunk); a training step
+    runs the pose trunk and head a second time on the equivariance view:
+    26 and 9."""
+    from bench_port.cell import experiment_config, merge
+
+    block = json.loads((ROOT / "bench_port" / "configs" / "imm_k10.json").read_text())["experiment"]
+    block = merge(block, {"model": {"image_size": 32, "compute_dtype": "float32"},
+                          "loss": {"compute_dtype": "float32"},
+                          "train": {"batch_size": 2, "steps_per_call": 1}})
+    exp = build_experiment(experiment_config(block), device="cpu", restore=False)
+    reset_kernel_counts()
+    exp.step_fn(exp.state, torch.Generator().manual_seed(1))
+    assert (SameConv2d.inline_pads, SameConv2d.pad_copies) == (26, 9)
+
+    fn = swap_fn(init_model(IMMConfig(n_landmarks=10, image_size=32), seed=3, device="cpu"))
+    gen = torch.Generator().manual_seed(2)
+    reset_kernel_counts()
+    fn(torch.rand(2, 32, 32, 3, generator=gen), torch.rand(2, 32, 32, 3, generator=gen))
+    assert (SameConv2d.inline_pads, SameConv2d.pad_copies) == (20, 6)
+    reset_kernel_counts()
+    assert SameConv2d.inline_pads == SameConv2d.pad_copies == 0
 
 
 def test_same_padding_is_asymmetric_at_stride_2():
